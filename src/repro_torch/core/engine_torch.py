@@ -1,6 +1,6 @@
 """The compiled epoch loop of the PyTorch port: the simulator's hot path.
 
-The five batch tiering engines are pure functions over ``(B, n_pages)``
+The batch tiering engines are pure functions over ``(B, n_pages)``
 tensors on one device, driven by a Python loop over epochs (the reference
 package's ``lax.scan``).  Each epoch: first-touch allocation, the engine's
 observe step (fused counter-hash Poisson monitoring draws), its plan step
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
+from .knobs import HEMEM_SPACE
 from .registry import ENGINES, SAMPLERS, register_engine, register_sampler
 
 register_sampler("elementwise", "fused counter-hash Poisson draw per page")
@@ -329,8 +330,14 @@ class HeMemDef(EngineDef):
                 "cursor": self.zeros(B, dtype=torch.int32),
                 "since": self.zeros(B), "credit": self.zeros(B)}
 
+    def _draws(self, kv, keys, e, reads, writes):
+        """Monitoring-noise hook: sampled (reads, writes), both ``(B, n)``.
+        The default is the fused counter-hash Poisson PEBS model;
+        :class:`KVHeMemDef` overrides it with deterministic means."""
+        return monitor_draw2(keys, e, reads, writes, kv["sp"], kv["wsp"])
+
     def observe(self, st, kv, keys, e, reads, writes, est_wall):
-        sr, sw = monitor_draw2(keys, e, reads, writes, kv["sp"], kv["wsp"])
+        sr, sw = self._draws(kv, keys, e, reads, writes)
         samples = (sr + sw).sum(dim=-1)
         since = st["since"] + samples
         k = torch.floor(since / kv["trigger"]).to(torch.int32)
@@ -376,6 +383,21 @@ class HeMemDef(EngineDef):
         pmask, dmask = kernel_ops.select_topk(cand_p, heat, cand_d, heat,
                                               n_p2 * gate, n_d2 * gate)
         return st, pmask, dmask, self.zeros(self.B)
+
+
+@register_engine("kv-hemem", space=HEMEM_SPACE)
+class KVHeMemDef(HeMemDef):
+    """The tiered-KV cache's HeMem analog: :class:`HeMemDef`'s cooling,
+    threshold, ring and rate machinery with **deterministic mean
+    sampling** (``sampled = true_counts / sampling_period``).  The serving
+    path measures per-page attention mass exactly, so there is no PEBS
+    noise to emulate; determinism is also what lets the fused serving step
+    match the per-page reference loop bitwise."""
+
+    def _draws(self, kv, keys, e, reads, writes):
+        sr = reads.to(torch.float32)[None, :] / kv["sp"][:, None]
+        sw = writes.to(torch.float32)[None, :] / kv["wsp"][:, None]
+        return sr, sw
 
 
 @register_engine("memtis")

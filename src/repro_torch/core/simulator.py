@@ -85,6 +85,8 @@ def _as_machine(machine: "Machine | str") -> Machine:
 _PAGE_SEMANTIC_KNOBS = {
     "hemem": ("cooling_pages", "hot_ring_reqs_threshold",
               "cold_ring_reqs_threshold"),
+    "kv-hemem": ("cooling_pages", "hot_ring_reqs_threshold",
+                 "cold_ring_reqs_threshold"),
     "hmsdk": ("nr_regions",),
     "memtis": (),
     "static": (),

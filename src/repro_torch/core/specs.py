@@ -23,6 +23,7 @@ import torch
 # samplers and machines the validators below resolve against
 from . import engine_torch as _engine_mod  # noqa: F401
 from . import simulator as _sim_mod        # noqa: F401
+from . import traffic as _traffic_mod      # noqa: F401  (kv-* workloads)
 from . import workloads as _workloads_mod  # noqa: F401
 from .knobs import SPACES
 from .registry import ENGINES, MACHINES, SAMPLERS, WORKLOADS

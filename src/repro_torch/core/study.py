@@ -14,7 +14,7 @@ queue item): ``sweep``, ``tune(executor="async"|"fleet")`` and
 
 from __future__ import annotations
 
-from typing import Any, List, Mapping, Optional, Sequence
+from typing import Any, Callable, List, Mapping, Optional, Sequence
 
 from .bo.tuner import TuningResult, TuningSession
 from .knobs import Config
@@ -68,6 +68,9 @@ class Study:
     def tune(self, budget: int = 100, batch_size: int = 1, seed: int = 0,
              optimizer: str = "smac", n_init: int = 20,
              random_prob: float = 0.20, verbose: bool = False,
+             objective: Optional[Callable[[Config], float]] = None,
+             objective_batch: Optional[
+                 Callable[[Sequence[Config]], Sequence[float]]] = None,
              executor: str = "sync", online: bool = False) -> TuningResult:
         """SMAC-BO tuning of the spec's engine knobs (§3.1).
 
@@ -77,6 +80,15 @@ class Study:
         candidate of a round sees the same monitoring noise, so the
         optimizer's within-batch comparisons are paired.
         ``optimizer="random"`` is the paper's unguided baseline.
+
+        ``objective`` (``config -> float``, lower is better) replaces the
+        simulator with a custom objective — e.g. the serving score of a
+        ``TieredKVCache`` traffic replay
+        (:func:`repro_torch.serving_replay.serving_objective`) — while the
+        spec still names what is tuned (the engine resolves the knob
+        space).  ``objective_batch`` (``[config] -> [float]``) is its
+        vectorized counterpart for ``batch_size > 1``; without it the
+        scalar objective is mapped over each round.
         """
         if online:
             raise NotImplementedError(
@@ -90,11 +102,14 @@ class Study:
             raise ValueError(f"unknown executor {executor!r}; expected "
                              f"'sync'")
 
-        def objective(config: Config) -> float:
-            return self.run(configs=[config])[0].total_s
+        if objective is None:
+            def objective(config: Config) -> float:
+                return self.run(configs=[config])[0].total_s
 
-        def objective_batch(configs: Sequence[Config]) -> List[float]:
-            return [r.total_s for r in self.run(configs=configs)]
+            if objective_batch is None:
+                def objective_batch(configs: Sequence[Config]
+                                    ) -> List[float]:
+                    return [r.total_s for r in self.run(configs=configs)]
 
         session = TuningSession(
             self.spec.engine.name, objective, scenario_key=self.key,

@@ -13,11 +13,15 @@ from typing import Dict, Optional
 
 import torch
 
+from . import page_migrate as pmk
+from . import paged_attention as pak
 from . import ref as R
 from . import select_topk as sk
 
 #: None (dispatch by device) or "plain" (plain version on every device)
 FORCE: Optional[str] = None
+
+_KERNELS = {"select_topk": sk, "page_migrate": pmk, "paged_attention": pak}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -44,10 +48,49 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
         n_promote.to(f32).contiguous(), n_demote.to(f32).contiguous())
 
 
+def page_migrate(dst, src, dst_ids, src_ids):
+    """``dst[dst_ids[i]] = src[src_ids[i]]`` for every lane, in place;
+    negative ids are no-ops and the last lane wins a shared destination;
+    returns ``dst``.  See :mod:`repro_torch.kernels.page_migrate`.
+
+    ``src`` and ``dst`` must be different tensors of one dtype (callers
+    cast before they call); ids may be any integer sequence and are
+    brought to contiguous int32 on the pools' device here."""
+    if dst.dtype != src.dtype:
+        raise TypeError(f"page_migrate: dst is {dst.dtype} but src is "
+                        f"{src.dtype}; cast before migrating")
+    if dst.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+        raise ValueError("page_migrate: src and dst share storage; they "
+                         "must be different tensors")
+    if dst.shape[1:].numel() != src.shape[1:].numel():
+        raise ValueError(f"page_migrate: rows differ in size: "
+                         f"{tuple(dst.shape)} vs {tuple(src.shape)}")
+    d = torch.as_tensor(dst_ids, device=dst.device).to(torch.int32)
+    s = torch.as_tensor(src_ids, device=dst.device).to(torch.int32)
+    if not _use_kernel(dst):
+        return R.page_migrate_plain(dst, src, d, s)
+    return pmk.page_migrate(dst, src, d.contiguous(), s.contiguous())
+
+
+def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
+                    logit_softcap: float = 0.0):
+    """One-token GQA decode attention over a paged pool; see
+    :mod:`repro_torch.kernels.paged_attention`.  q is made contiguous and
+    the table and lengths int32 here; the pools are passed as they are."""
+    if not _use_kernel(q):
+        return R.paged_attention_plain(q, k_pages, v_pages, block_table,
+                                       lengths, logit_softcap=logit_softcap)
+    return pak.paged_attention(
+        q.contiguous(), k_pages, v_pages,
+        block_table.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous(), logit_softcap=logit_softcap)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {"select_topk": sk.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    sk.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

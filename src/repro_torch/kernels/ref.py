@@ -1,6 +1,13 @@
 """Plain PyTorch versions of the port's kernels: the CPU path and the
 oracle every kernel is compared with on the card.
 
+:func:`page_migrate_plain` and :func:`paged_attention_plain` follow the
+reference package's ``page_migrate_ref`` and ``paged_attention_ref``, with
+two documented differences in ``page_migrate``: it updates ``dst`` in place,
+and a ``-1`` lane is a no-op in every case (the reference clamps an invalid
+lane to row 0 and writes that row's old contents back after the valid
+lanes, so ``dst_ids=[0, -1]`` loses the copy into row 0).
+
 :func:`select_topk_ref` mirrors the reference package's pure-jnp
 ``select_topk_ref``: a dual 32-step bitwise search for each side's cutoff
 key, the strict set taken wholesale, and the boundary tier filled in page
@@ -10,6 +17,8 @@ shifts or comparisons on ``torch.uint32``); every count is an exact integer.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +85,58 @@ def select_topk_ref(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
     pm = strict_p | (bound_p & (wp >= sp) & (take_p > 0))
     dm = strict_d | (bound_d & (wd >= sd) & (take_d > 0))
     return pm & (kp > 0), dm & (kd > 0)
+
+
+def page_migrate_plain(dst, src, dst_ids, src_ids):
+    """``dst[dst_ids[i]] = src[src_ids[i]]`` row by row, in place; a lane
+    with ``dst_ids[i] < 0`` or ``src_ids[i] < 0`` is a no-op, and of lanes
+    with the same destination the last one wins.  Rows are ``dst[r]`` and
+    ``src[r]`` (dim 0); returns ``dst``."""
+    dev = dst.device
+    d = torch.as_tensor(dst_ids, device=dev).to(torch.int64).reshape(-1)
+    s = torch.as_tensor(src_ids, device=dev).to(torch.int64).reshape(-1)
+    lane = torch.arange(d.numel(), dtype=torch.int64, device=dev)
+    valid = (d >= 0) & (s >= 0)
+    # last lane wins: the largest lane index per destination row, an
+    # order-free reduction, so the result does not depend on scatter order
+    winner = torch.full((dst.shape[0],), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, torch.where(valid, d, 0),
+                           torch.where(valid, lane, -1), reduce="amax")
+    keep = valid & (winner[torch.where(valid, d, 0)] == lane)
+    dst[d[keep]] = src[s[keep]]
+    return dst
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_table, lengths, *,
+                          logit_softcap: float = 0.0):
+    """One-token GQA decode attention over a paged KV pool, in float32.
+
+    q ``(B, H, D)``; k/v_pages ``(P, page, KV, D)``; block_table ``(B,
+    pages_per_seq)`` int page ids (``-1`` = not resident); lengths
+    ``(B,)``.  Query head ``h`` reads KV head ``h // (H // KV)``.  A
+    position attends iff it is below its sequence's length and its page is
+    resident; a row with no such position gives zeros.  Returns ``(B, H,
+    D)`` in q's dtype."""
+    B, H, D = q.shape
+    _, page, KV, _ = k_pages.shape
+    G = H // KV
+    ppseq = block_table.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    table = block_table.to(torch.int64)
+    idx = torch.clamp(table, min=0)
+    kk = k_pages[idx].reshape(B, ppseq * page, KV, D).to(torch.float32)
+    vv = v_pages[idx].reshape(B, ppseq * page, KV, D).to(torch.float32)
+    qg = q.reshape(B, KV, G, D).to(torch.float32) * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kk)
+    if logit_softcap > 0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    pos = torch.arange(ppseq * page, device=q.device)
+    valid = (pos[None, :] < lengths.to(torch.int64)[:, None]) \
+        & (table[:, pos // page] >= 0)
+    s = torch.where(valid[:, None, None], s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    p = torch.where(valid[:, None, None], p, 0.0)
+    out = torch.einsum("bkgt,btkd->bkgd", p, vv) \
+        / torch.clamp(p.sum(-1)[..., None], min=1e-30)
+    return out.reshape(B, H, D).to(q.dtype)

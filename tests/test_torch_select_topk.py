@@ -113,6 +113,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.engine_torch, repro_torch.core.simulator\n"
         "import repro_torch.core.bo, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.select_topk, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.page_migrate\n"
+        "import repro_torch.kernels.paged_attention\n"
+        "import repro_torch.core.traffic, repro_torch.core.serving_torch\n"
+        "import repro_torch.core.tiered_kv, repro_torch.serving_replay\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -122,6 +126,21 @@ def test_port_imports_neither_jax_nor_repro():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """chip_smoke.py imports torch, numpy, the standard library and the
+    port only (read from its source: running it needs a card)."""
+    import ast
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "jax" not in names and "repro" not in names, names
+    assert "repro_torch" in names and "torch" in names
 
 
 # ---------------------------------------------------------------------------
