@@ -54,12 +54,31 @@ runs, in order (any failure exits non-zero and prints no result):
     cross-device tolerance of the CPU path;
 11. the serving tuning loop: ``Study.tune(budget=8, objective=serving
     objective)`` over 256-step replays at the same width;
-12. one JSON line per the kernel table, the card line again, and as the
+12. after freeing the serving pools, ``flash_attention`` against its
+    plain version (f32 within 2e-5, bf16 within 2e-2) on the CPU test
+    file's cases, gemma2-9b's head shape (D 256, softcap 50, window
+    4,096 at S = 4,608), h2o-danube-3-4b's (D 120) and chatglm3-6b's
+    prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)); times at the
+    last beside ``scaled_dot_product_attention`` (causal, GQA);
+13. the LM main path: ``build_prefill_step`` at chatglm3-6b's full width
+    on 4 x 2,048 tokens with the launch counters set to 0 just before and
+    read just after (flash_attention exactly once per layer, 28), prefill
+    ms and tokens/s, last logits against ``FORCE="plain"``, and a
+    profiled prefill for the kernel's share of device time;
+14. the port's launcher (``--arch chatglm3-6b --full --batch 4
+    --prompt-len 512 --new-tokens 32``): ms per generated token, no
+    kernel launched by decode, and its logits after teacher-forcing the
+    prompt against prefill's last-position logits on the same prompt
+    (within ``LM_LOGIT_TOL``, relative to the largest logit);
+15. the chatglm3-6b and gemma2-9b smoke configs at S = 512 on the card
+    against the port's CPU path;
+16. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -353,7 +372,8 @@ def serving_replay(config, steps, device="cuda", **kw):
 
 def expected_serving_launches(steps):
     """Launches the replay must make: paged_attention once per step with an
-    active sequence; per engine epoch page_migrate 4 and select_topk 1."""
+    active sequence; per engine epoch page_migrate 4 and select_topk 1;
+    no flash_attention."""
     from repro_torch.core.traffic import replay_schedule
     b, mp = SERVING["batch"], SERVING["max_pages"]
     from repro_torch.core.tiered_kv import KV_MODELS
@@ -364,7 +384,8 @@ def expected_serving_launches(steps):
     epochs = int(sum(decoded[t] for t in range(steps)
                      if t % every == every - 1))
     return {"paged_attention": int(decoded.sum()),
-            "page_migrate": 4 * epochs, "select_topk": epochs}
+            "page_migrate": 4 * epochs, "select_topk": epochs,
+            "flash_attention": 0}
 
 
 def migrate_cases(device):
@@ -770,6 +791,281 @@ def phase_serving_tune():
             "wall_s": wall_s}
 
 
+# ---------------------------------------------------------------------------
+# LM serving: flash attention, prefill and decode at chatglm3-6b's width
+# ---------------------------------------------------------------------------
+#: H100 SXM dense bf16 tensor-core rate (FLOP/s), NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12
+#: the LM main path: chatglm3-6b at full width, prefill of 4 x 2,048 tokens;
+#: the launcher teacher-forces 4 x 512 tokens, then decodes 32
+LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=512,
+          new_tokens=32)
+#: bf16 logits: largest |difference| over the largest |reference logit|
+LM_LOGIT_TOL = 3e-2
+
+#: the CPU test file's cases, then gemma2-9b's head shape (window 4,096
+#: bites at 4,608), h2o-danube-3-4b's, and chatglm3-6b's prefill
+FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 256, 256, 8, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 4, 1, 128, True, 128, 0.0),
+    (2, 128, 128, 4, 4, 64, False, 0, 0.0),
+    (1, 256, 256, 2, 2, 256, True, 0, 50.0),
+    (1, 96, 96, 4, 2, 120, True, 0, 0.0),
+    (1, 200, 256, 4, 2, 32, True, 0, 0.0),
+    (1, 200, 200, 4, 2, 32, True, 0, 0.0),
+    (2, 200, 77, 4, 2, 32, True, 0, 30.0),
+    (1, 160, 160, 2, 1, 16, False, 48, 0.0),
+    (1, 64, 16, 4, 2, 32, False, 8, 0.0),
+    (1, 4608, 4608, 16, 8, 256, True, 4096, 50.0),
+    (1, 4608, 4608, 32, 8, 120, True, 4096, 0.0),
+    (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),
+]
+
+
+def flash_inputs(case, dtype, seed):
+    import torch
+    B, S, T, H, KV, D = case[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def attended_pairs(S, T, causal, window):
+    """(query, key) pairs the mask keeps, counted from the positions."""
+    import numpy as np
+    q = np.arange(S)[:, None]
+    k = np.arange(T)[None, :]
+    keep = np.ones((S, T), bool)
+    if causal:
+        keep &= k <= q
+    if window > 0:
+        keep &= k > q - window
+    return int(keep.sum())
+
+
+def phase_flash_attention():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ops, ref
+    max_err = 0.0
+    n = 0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for case in FLASH_CASES:
+            q, k, v = flash_inputs(case, dtype, seed=n)
+            kw = dict(causal=case[6], window=case[7], logit_softcap=case[8])
+            want = ref.flash_attention_plain(q, k, v, **kw)
+            got = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, err)
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                fail(f"flash_attention differs from its plain version "
+                     f"({dtype}, case {case}): {err}")
+            n += 1
+            del q, k, v, want, got
+    print(f"flash_attention: {n} cases within tolerance of the plain "
+          f"version (f32 2e-5, bf16 2e-2; max bf16 abs err {max_err:.3g})",
+          flush=True)
+    case = FLASH_CASES[-1]
+    B, S, T, H, KV, D, causal, window, _ = case
+    q, k, v = flash_inputs(case, torch.bfloat16, seed=99)
+    kernel_ms = cuda_ms(lambda: fak.flash_attention(q, k, v))
+    plain_ms = cuda_ms(lambda: ref.flash_attention_plain(q, k, v))
+    # yardstick: SDPA in its (B, H, S, D) layout (the transposes not timed)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    if not torch.allclose(lib.float(), fak.flash_attention(q, k, v).float(),
+                          atol=2e-2, rtol=2e-2):
+        fail("the SDPA yardstick does not compute the kernel's function")
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 4 * D * attended_pairs(S, T, causal, window) * B * H
+    # q, k and v read once, the output (q's shape) written once
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOPS_PER_S \
+        >= moved / HBM_BYTES_PER_S else "bytes"
+    print(f"flash_attention at chatglm3-6b's prefill (q {tuple(q.shape)}, "
+          f"k/v {tuple(k.shape)} bf16, causal): kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({flops} flops, {moved} bytes)",
+          flush=True)
+    return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def lm_cfg():
+    from repro_torch.configs import get_config
+    return get_config(LM["arch"])
+
+
+def profile_prefill(prefill, model, batch):
+    """Device time of one profiled prefill and the flash kernel's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        prefill(model, batch)
+        torch.cuda.synchronize()
+    busy_us = flash_us = 0.0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += us
+        rows.append((us, e.key[:80], e.count))
+        if "flash_bf16_kernel" in e.key or "flash_f32_kernel" in e.key:
+            flash_us += us
+    rows.sort(reverse=True)
+    return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
+            "flash_share": flash_us / busy_us if busy_us else 0.0,
+            "top": [{"name": n, "ms": us / 1e3, "count": c}
+                    for us, n, c in rows[:6]]}
+
+
+def phase_lm_prefill():
+    """chatglm3-6b at full width: build_prefill_step on (4, 2,048)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.step import build_prefill_step
+    cfg = lm_cfg()
+    t0 = time.perf_counter()
+    model = T.init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    B, S = LM["batch"], LM["seq"]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S))).cuda()}
+    prefill = build_prefill_step(cfg)
+    prefill(model, batch)                      # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["flash_attention"] != cfg.n_layers or \
+            sum(launches.values()) != cfg.n_layers:
+        fail(f"prefill launches {launches}, expected flash_attention "
+             f"{cfg.n_layers} and nothing else")
+    if not (logits.shape == (B, 1, cfg.padded_vocab)
+            and bool(torch.isfinite(logits.float()).all())):
+        fail("prefill logits non-finite or misshapen")
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=5, warmup=1)
+    ops.FORCE = "plain"
+    try:
+        plain_logits = prefill(model, batch)
+        plain_prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=3,
+                                   warmup=0)
+    finally:
+        ops.FORCE = None
+    err = float((logits.float() - plain_logits.float()).abs().max()
+                / plain_logits.float().abs().max())
+    if err > LM_LOGIT_TOL:
+        fail(f"prefill logits with the kernel and the plain version differ "
+             f"by {err} (relative to the largest logit)")
+    prof = profile_prefill(prefill, model, batch)
+    stats = {"params": n_params, "weights_gb": weight_gb, "init_s": init_s,
+             "batch": B, "seq": S, "prefill_ms": prefill_ms,
+             "tokens_per_s": B * S / prefill_ms * 1e3,
+             "plain_prefill_ms": plain_prefill_ms,
+             "last_logits_rel_err_vs_plain": err,
+             "flash_launches": launches["flash_attention"],
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "profile": prof}
+    print(f"LM prefill ({cfg.arch} full width, {cfg.n_layers} layers, "
+          f"B={B}, S={S}): " + json.dumps(stats), flush=True)
+    return model, launches, stats
+
+
+def phase_lm_decode(model):
+    """The port's launcher at full width, then prefill's last logits on
+    the launcher's prompt against the logits after teacher-forcing it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.step import build_prefill_step
+    cfg = lm_cfg()
+    argv = ["--arch", cfg.arch, "--full", "--batch", str(LM["batch"]),
+            "--prompt-len", str(LM["prompt_len"]), "--new-tokens",
+            str(LM["new_tokens"])]
+    ops.reset_launch_counts()
+    res = launcher.main(argv)
+    decode_launches = ops.launch_counts()
+    if any(decode_launches.values()):
+        fail(f"the launcher's decode loop launched kernels: {decode_launches}")
+    tokens = res["tokens"]
+    if tokens.shape != (LM["batch"], LM["new_tokens"]) or \
+            int(tokens.min()) < 0 or int(tokens.max()) >= cfg.padded_vocab:
+        fail(f"launcher tokens misshapen or out of range: {tokens.shape}")
+    ops.reset_launch_counts()
+    want = build_prefill_step(cfg)(model, {"tokens": res["prompt"]})[:, -1]
+    prefill_launches = ops.launch_counts()["flash_attention"]
+    got = res["prompt_logits"]
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not (bool(torch.isfinite(got.float()).all()) and err <= LM_LOGIT_TOL):
+        fail(f"decode after teacher forcing and prefill disagree by {err} "
+             f"(relative to the largest logit; tolerance {LM_LOGIT_TOL})")
+    stats = {"decode_ms_per_token": res["decode_ms_per_token"],
+             "prompt_s": res["prompt_s"],
+             "prompt_ms_per_token": res["prompt_s"] / LM["prompt_len"] * 1e3,
+             "decode_launches": decode_launches,
+             "prefill_flash_launches": prefill_launches,
+             "prompt_logits_rel_err_vs_prefill": err,
+             "prompt_argmax_agreement": agree}
+    print(f"LM launcher ({' '.join(argv)}): " + json.dumps(stats), flush=True)
+    return stats
+
+
+def phase_lm_card_vs_cpu():
+    """chatglm3-6b and gemma2-9b smoke configs at S = 512: the card's
+    forward and prefill against the port's CPU path on the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.step import build_prefill_step
+    for arch in ("chatglm3-6b", "gemma2-9b"):
+        cfg = get_config(arch, smoke=True)
+        cpu_model = T.init(0, cfg, device="cpu")
+        card_model = T.init(0, cfg, device="cpu").to("cuda")
+        tokens = torch.from_numpy(
+            np.random.default_rng(1).integers(0, cfg.vocab, (2, 512)))
+        ops.reset_launch_counts()
+        card = T.forward(card_model, cfg, tokens.cuda())[0]
+        card_last = build_prefill_step(cfg)(card_model,
+                                            {"tokens": tokens.cuda()})
+        if ops.launch_counts()["flash_attention"] != 2 * cfg.n_layers:
+            fail(f"{arch} smoke: flash_attention not launched per layer")
+        cpu = T.forward(cpu_model, cfg, tokens)[0]
+        cpu_last = build_prefill_step(cfg)(cpu_model, {"tokens": tokens})
+        for name, a, b in (("forward", card, cpu),
+                           ("prefill", card_last, cpu_last)):
+            err = float((a.cpu().float() - b.float()).abs().max()
+                        / b.float().abs().max())
+            if err > LM_LOGIT_TOL:
+                fail(f"{arch} smoke {name}: card and CPU differ by {err}")
+    print("LM smoke configs (chatglm3-6b, gemma2-9b) at S = 512: card "
+          "agrees with the CPU path", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -782,6 +1078,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import page_migrate as pmk
     from repro_torch.kernels import paged_attention as pak
     from repro_torch.kernels import select_topk as sk
@@ -803,6 +1100,15 @@ def main() -> int:
     phase_serving_small()
     phase_kv_study()
     phase_serving_tune()
+    gc.collect()                      # the serving pools (~4.2 GB) go first
+    torch.cuda.empty_cache()
+    flash_timing = phase_flash_attention()
+    model, prefill_launches, _ = phase_lm_prefill()
+    phase_lm_decode(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm_card_vs_cpu()
 
     def row(name, mod, timing, by_path):
         return {
@@ -812,7 +1118,8 @@ def main() -> int:
             "max_abs_err": timing["max_abs_err"], "matches_plain": True,
             "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": "bytes", "library_ms": timing["library_ms"]}
+            "bound_by": timing.get("bound_by", "bytes"),
+            "library_ms": timing["library_ms"]}
 
     kernels = [
         row("select_topk", sk, topk_timing,
@@ -822,6 +1129,8 @@ def main() -> int:
             {"serving": serving_launches["page_migrate"]}),
         row("paged_attention", pak, attention_timing,
             {"serving": serving_launches["paged_attention"]}),
+        row("flash_attention", fak, flash_timing,
+            {"lm_prefill": prefill_launches["flash_attention"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs: ``<checkout>/build/`` (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("select_topk", "page_migrate", "paged_attention")
+KERNELS = ("select_topk", "page_migrate", "paged_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

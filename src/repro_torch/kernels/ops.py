@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import flash_attention as fak
 from . import page_migrate as pmk
 from . import paged_attention as pak
 from . import ref as R
@@ -21,7 +22,8 @@ from . import select_topk as sk
 #: None (dispatch by device) or "plain" (plain version on every device)
 FORCE: Optional[str] = None
 
-_KERNELS = {"select_topk": sk, "page_migrate": pmk, "paged_attention": pak}
+_KERNELS = {"select_topk": sk, "page_migrate": pmk, "paged_attention": pak,
+            "flash_attention": fak}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -84,6 +86,19 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
         q.contiguous(), k_pages, v_pages,
         block_table.to(torch.int32).contiguous(),
         lengths.to(torch.int32).contiguous(), logit_softcap=logit_softcap)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_softcap: float = 0.0):
+    """Tiled online-softmax GQA attention, q ``(B, S, H, D)`` and k/v
+    ``(B, T, KV, D)`` -> ``(B, S, H, D)``; see
+    :mod:`repro_torch.kernels.flash_attention`.  Tensors are passed as they
+    are (the kernel reads through strides)."""
+    if not _use_kernel(q):
+        return R.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       logit_softcap=logit_softcap)
+    return fak.flash_attention(q, k, v, causal=causal, window=window,
+                               logit_softcap=logit_softcap)
 
 
 def launch_counts() -> Dict[str, int]:

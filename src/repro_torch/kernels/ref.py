@@ -8,6 +8,10 @@ and a ``-1`` lane is a no-op in every case (the reference clamps an invalid
 lane to row 0 and writes that row's old contents back after the valid
 lanes, so ``dst_ids=[0, -1]`` loses the copy into row 0).
 
+:func:`flash_attention_plain` follows the reference's
+``flash_attention_ref``: the same online-softmax recurrence over 512-key
+blocks, in float32.
+
 :func:`select_topk_ref` mirrors the reference package's pure-jnp
 ``select_topk_ref``: a dual 32-step bitwise search for each side's cutoff
 key, the strict set taken wholesale, and the boundary tier filled in page
@@ -140,3 +144,54 @@ def paged_attention_plain(q, k_pages, v_pages, block_table, lengths, *,
     out = torch.einsum("bkgt,btkd->bkgd", p, vv) \
         / torch.clamp(p.sum(-1)[..., None], min=1e-30)
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          logit_softcap: float = 0.0,
+                          block_kv: int = 512) -> torch.Tensor:
+    """Online-softmax GQA attention in float32.  q ``(B, S, H, D)``, k/v
+    ``(B, T, KV, D)`` -> ``(B, S, H, D)`` in q's dtype.
+
+    Query head ``h`` reads KV head ``h // (H // KV)``; q is scaled by
+    ``1/sqrt(D)`` before the product; the softcap ``c * tanh(s / c)`` comes
+    before the mask.  Key ``t`` is seen by query ``s`` iff ``t < T``, ``t <=
+    s`` when causal, and ``t > s - window`` when ``window > 0`` (causal or
+    not).  A row that sees no key gives zeros."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    qg = q.reshape(B, S, KV, G, D).to(f32) * scale
+    nblk = max(1, -(-T // block_kv))
+    pad = nblk * block_kv - T
+    kf = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, pad))
+    q_pos = torch.arange(S, device=q.device)
+    m = torch.full((B, S, KV, G), -torch.inf, dtype=f32, device=q.device)
+    l = torch.zeros((B, S, KV, G), dtype=f32, device=q.device)
+    acc = torch.zeros((B, S, KV, G, D), dtype=f32, device=q.device)
+    for blk in range(nblk):
+        start = blk * block_kv
+        kb = kf[:, start:start + block_kv]
+        vb = vf[:, start:start + block_kv]
+        k_pos = start + torch.arange(block_kv, device=q.device)
+        s = torch.einsum("bskgd,btkd->bskgt", qg, kb)
+        if logit_softcap > 0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        mask = (k_pos < T)[None, :].expand(S, block_kv)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        mask = mask[None, :, None, None]
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bskgt,btkd->bskgd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, S, H, D).to(q.dtype)

@@ -1,0 +1,239 @@
+"""Neural-net layers of the dense attention archs, in PyTorch.
+
+A copy of the reference package's ``repro.models.layers`` for the blocks the
+dense attention archs use: GQA attention (full / sliding-window, logit
+softcap, RoPE incl. partial "2d"), RMS and layer norm, and the SwiGLU,
+GeGLU and GeLU MLPs.  Parameters are mappings of tensors (plain dicts or
+``nn.ParameterDict``); the casts sit where the reference has them, so that
+bf16 rounds at the same places.  ``attn_apply`` runs prefill attention
+through :func:`repro_torch.kernels.ops.flash_attention` under the
+reference's threshold (``S >= 512`` and ``S * B <= 2**22``), and the inline
+``_sdpa`` below it.
+
+Not ported yet (ROADMAP queue 1): top-k MoE, RG-LRU, mLSTM, sLSTM and
+cross-attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+Params = Mapping[str, torch.Tensor]
+#: decode cache of one attention layer: (k_buf, v_buf, length); the buffers
+#: are (B, T, KV, D) and are written in place, length is a Python int
+KVCache = Tuple[torch.Tensor, torch.Tensor, int]
+
+# ---------------------------------------------------------------------------
+# utilities
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    """Uniform(-1/sqrt(d_in), 1/sqrt(d_in)) in float32, cast to ``dtype``,
+    made on ``device`` (the generator's device)."""
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.rand((d_in, d_out), generator=gen, dtype=torch.float32,
+                   device=device)
+    return (w.mul_(2 * scale).sub_(scale)).to(dtype)
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.to(torch.float32))).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(dt)
+
+
+def softcap(x, cap: float):
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               rotary_dim: Optional[int] = None, device=None):
+    rd = rotary_dim or head_dim
+    exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
+    return 1.0 / (theta ** exps)  # (rd/2,)
+
+
+def apply_rope(x, positions, theta: float = 10000.0,
+               rotary_frac: float = 1.0):
+    """x: (..., S, H, D); positions: (..., S).  Rotates interleaved pairs
+    ``(x[..., 0::2], x[..., 1::2])`` of the first ``rotary_frac`` of the
+    dims (chatglm's 2d/partial RoPE); the rotation is float32."""
+    D = x.shape[-1]
+    rd = int(D * rotary_frac)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    inv = rope_freqs(D, theta, rd, device=x.device)
+    ang = positions[..., :, None].to(torch.float32) * inv  # (..., S, rd/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    cos = torch.cos(ang)[..., :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; causal / sliding-window)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rotary_frac: float = 1.0
+    window: int = 0              # 0 = full attention; >0 = sliding window
+    logit_softcap: float = 0.0   # 0 = off (gemma2 uses 50.0)
+    causal: bool = True
+    use_rope: bool = True
+    qk_norm: bool = False
+
+
+def attn_init(gen, cfg: AttnCfg, dtype=torch.bfloat16, device="cuda"):
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    return {
+        "wq": dense_init(gen, cfg.d_model, qd, dtype, device),
+        "wk": dense_init(gen, cfg.d_model, kvd, dtype, device),
+        "wv": dense_init(gen, cfg.d_model, kvd, dtype, device),
+        "wo": dense_init(gen, qd, cfg.d_model, dtype, device),
+    }
+
+
+def _sdpa(q, k, v, *, causal, window, cap, q_pos, k_pos, dtype):
+    """q: (B,S,H,D), k/v: (B,T,KV,D) — grouped-query attention core,
+    written out as the reference writes it (not a fused library call)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, KV, G, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) \
+        * scale
+    if cap > 0:
+        logits = softcap(logits, cap)
+    if causal:
+        mask = k_pos[None, :] <= q_pos[:, None]
+    else:
+        mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=q.device)
+    if window > 0:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    logits = torch.where(mask[None, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, D)
+
+
+def attn_apply(params: Params, cfg: AttnCfg, x, positions,
+               kv_cache: Optional[KVCache] = None, use_flash: bool = True):
+    """Returns (out, new_kv_cache).
+
+    * prefill: ``kv_cache=None`` -> full self-attention over x, through the
+      flash kernel for ``S >= 512`` and ``S * B <= 2**22``.
+    * decode: ``kv_cache=(k_buf, v_buf, length)`` -> append, attend.  The
+      buffers are written in place (the reference returns updated copies).
+    """
+    B, S, _ = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, D)
+    k = (x @ params["wk"]).reshape(B, S, KV, D)
+    v = (x @ params["wv"]).reshape(B, S, KV, D)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_frac)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_frac)
+
+    if kv_cache is None:
+        if use_flash and S >= 512 and S * B <= (1 << 22):
+            out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                       window=cfg.window,
+                                       logit_softcap=cfg.logit_softcap)
+        else:
+            out = _sdpa(q, k, v, causal=cfg.causal, window=cfg.window,
+                        cap=cfg.logit_softcap, q_pos=positions[0],
+                        k_pos=positions[0], dtype=x.dtype)
+        return out.reshape(B, S, H * D) @ params["wo"], None
+
+    # ---- decode: append to cache then attend over it ----
+    # Sliding-window layers use the buffer as a ring (T == window): softmax
+    # is permutation-invariant and keys carry their RoPE phase from write
+    # time, so slot order does not matter.
+    k_buf, v_buf, length = kv_cache
+    T = k_buf.shape[1]
+    idx = min(length % T, T - S)  # the reference's dynamic_update_slice clamp
+    k_buf[:, idx:idx + S] = k.to(k_buf.dtype)
+    v_buf[:, idx:idx + S] = v.to(v_buf.dtype)
+    k_pos = torch.arange(T, device=x.device)
+    valid = (k_pos <= length) | (length >= T)
+    if cfg.window > 0 and T > cfg.window:
+        valid = valid & (k_pos > length - cfg.window)
+    qg = q.reshape(B, S, KV, H // KV, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_buf).to(torch.float32)
+    logits = logits * (1.0 / math.sqrt(D))
+    if cfg.logit_softcap > 0:
+        logits = softcap(logits, cfg.logit_softcap)
+    logits = torch.where(valid[None, None, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v_buf).reshape(B, S, H * D)
+    return out @ params["wo"], (k_buf, v_buf, length + S)
+
+
+def kv_cache_init(cfg: AttnCfg, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen, d_model, d_ff, kind: str = "swiglu", dtype=torch.bfloat16,
+             device="cuda"):
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+                "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+                "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+    return {"w_up": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+
+
+def mlp_apply(params: Params, x, kind: str = "swiglu"):
+    if kind == "swiglu":
+        return (F.silu(x @ params["w_gate"]) *
+                (x @ params["w_up"])) @ params["w_down"]
+    if kind == "geglu":
+        return (F.gelu(x @ params["w_gate"], approximate="tanh") *
+                (x @ params["w_up"])) @ params["w_down"]
+    return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]

@@ -1,0 +1,322 @@
+"""The decoder-only LM for the dense attention archs, in PyTorch.
+
+A port of the reference package's ``repro.models.transformer`` for
+``family="lm"`` with attention blocks (``attn``, ``attn_local``): chatglm3-6b,
+gemma2-9b, h2o-danube-3-4b and command-r-plus-104b.  The model is an
+``nn.Module`` (:class:`Model`: the embedding, a ``ModuleList`` of
+:class:`Block` and the final norm); a Python loop over the layers takes the
+place of the reference's ``lax.scan`` over stacked layer groups.  Weights
+serve inference and do not require gradients.
+
+API (functions over the model, as in the reference):
+  init(key, cfg, device)                -> Model   (weights made on device)
+  params_from_jax(params_np, cfg)       -> Model   (the reference's weights)
+  forward / hidden_forward              -> logits / hidden   (prefill)
+  decode_init(cfg, batch, max_len)      -> cache   (a list, one per layer)
+  decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
+
+MoE, recurrent (RG-LRU, mLSTM, sLSTM) and cross-attention layers, and the
+encoder-decoder and vision families, raise ``NotImplementedError``
+(ROADMAP queue 1); ``loss_fn`` belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import layers as L
+from .config import ModelConfig
+
+#: the ROADMAP queue 1 item that ports each unsupported layer kind / family
+_NOT_PORTED = {
+    "moe": "MoE layers",
+    "rglru": "RG-LRU layers",
+    "mlstm": "mLSTM and sLSTM layers",
+    "slstm": "mLSTM and sLSTM layers",
+    "encdec": "cross-attention (encdec, vlm)",
+    "vlm": "cross-attention (encdec, vlm)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    what = None
+    if cfg.family != "lm":
+        what = cfg.family
+    elif cfg.moe_experts:
+        what = "moe"
+    else:
+        what = next((k for k in cfg.pattern if not k.startswith("attn")),
+                    None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.arch}: {what!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md queue 1: {_NOT_PORTED.get(what, what)})")
+
+
+# ---------------------------------------------------------------------------
+# pattern periodicity
+# ---------------------------------------------------------------------------
+
+def _cross_layers(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return set(range(cfg.n_layers))          # every decoder layer
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        return set(range(cfg.cross_attn_every - 1, cfg.n_layers,
+                         cfg.cross_attn_every))
+    return set()
+
+
+def pattern_period(cfg: ModelConfig) -> int:
+    """Smallest period of (block kind, has-cross) over the layer stack."""
+    pat = cfg.pattern
+    cross = _cross_layers(cfg)
+    n = cfg.n_layers
+    for p in range(1, n + 1):
+        if n % p:
+            continue
+        if all(pat[i] == pat[i % p] and ((i in cross) == ((i % p) in cross))
+               for i in range(n)):
+            return p
+    return n
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+def _attn_cfg(cfg: ModelConfig, kind: str) -> L.AttnCfg:
+    local = kind == "attn_local"
+    return L.AttnCfg(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+        rotary_frac=cfg.rotary_frac,
+        window=cfg.window if local or (cfg.window and kind == "attn") else 0,
+        logit_softcap=cfg.attn_softcap, causal=True)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _norm_module(p):
+    """An rms weight as a parameter, a layer norm's {"w", "b"} as a dict."""
+    if isinstance(p, Mapping):
+        return nn.ParameterDict({k: _frozen(v) for k, v in p.items()})
+    return _frozen(p)
+
+
+class Block(nn.Module):
+    """One decoder layer: norm1, attention, norm2, MLP (``d_ff > 0``)."""
+
+    def __init__(self, kind: str, norm1, attn: Mapping[str, torch.Tensor],
+                 norm2=None, mlp: Optional[Mapping[str, torch.Tensor]] = None):
+        super().__init__()
+        self.kind = kind
+        self.norm1 = _norm_module(norm1)
+        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in attn.items()})
+        self.norm2 = None if norm2 is None else _norm_module(norm2)
+        self.mlp = None if mlp is None else nn.ParameterDict(
+            {k: _frozen(v) for k, v in mlp.items()})
+
+
+class Model(nn.Module):
+    """Embedding (``padded_vocab x d_model``), blocks and the final norm;
+    ``unembed`` only when the config does not tie embeddings."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, norm_f,
+                 blocks: Sequence[Block],
+                 unembed: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _frozen(embed)
+        self.unembed = None if unembed is None else _frozen(unembed)
+        self.norm_f = _norm_module(norm_f)
+        self.blocks = nn.ModuleList(blocks)
+
+
+def _norm_init(cfg: ModelConfig, d: int, device):
+    if cfg.norm == "rms":
+        return torch.zeros((d,), dtype=torch.float32, device=device)
+    return {"w": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def _apply_norm(cfg: ModelConfig, p, x):
+    if cfg.norm == "rms":
+        return L.rms_norm(x, p)
+    return L.layer_norm(x, p["w"], p["b"])
+
+
+def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Block:
+    dt = cfg.tdtype
+    attn = L.attn_init(gen, _attn_cfg(cfg, kind), dt, device)
+    norm2 = mlp = None
+    if cfg.d_ff > 0:
+        norm2 = _norm_init(cfg, cfg.d_model, device)
+        mlp = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+    return Block(kind, _norm_init(cfg, cfg.d_model, device), attn, norm2, mlp)
+
+
+def init(key, cfg: ModelConfig, device="cuda") -> Model:
+    """Random weights made on ``device``.  ``key`` is a ``torch.Generator``
+    on that device or an int seed.  The numbers differ from the reference's
+    ``init`` (another generator); :func:`params_from_jax` carries those."""
+    check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    gen = key if isinstance(key, torch.Generator) else \
+        torch.Generator(device=device).manual_seed(int(key))
+    dt = cfg.tdtype
+    embed = L.dense_init(gen, cfg.padded_vocab, cfg.d_model, dt, device)
+    unembed = None if cfg.tie_embeddings else \
+        L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt, device)
+    norm_f = _norm_init(cfg, cfg.d_model, device)
+    blocks = [init_layer(gen, cfg, kind, device) for kind in cfg.pattern]
+    return Model(cfg, embed, norm_f, blocks, unembed)
+
+
+# ---------------------------------------------------------------------------
+# weights from the reference
+# ---------------------------------------------------------------------------
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bf16 as ml_dtypes.bfloat16, bits kept) as a tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tree(p, fn):
+    if isinstance(p, Mapping):
+        return {k: _tree(v, fn) for k, v in p.items()}
+    return fn(p)
+
+
+def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
+                    device="cuda") -> Model:
+    """The reference's parameter tree (as numpy arrays) as the port's model.
+
+    ``params_np["blocks"][k]`` holds pattern offset ``k`` stacked over
+    ``n_layers // period`` groups; group ``g`` becomes layer
+    ``g * period + k``."""
+    check_supported(cfg)
+    period = pattern_period(cfg)
+    n_groups = cfg.n_layers // period
+
+    def conv(a):
+        return _tensor(a, device)
+
+    blocks: List[Optional[Block]] = [None] * cfg.n_layers
+    for k in range(period):
+        stacked = params_np["blocks"][k]
+        for g in range(n_groups):
+            p = _tree(stacked, lambda a, g=g: conv(np.asarray(a)[g]))
+            blocks[g * period + k] = Block(
+                cfg.pattern[k], p["norm1"], p["attn"], p.get("norm2"),
+                p.get("mlp"))
+    unembed = params_np.get("unembed")
+    return Model(cfg, conv(params_np["embed"]),
+                 _tree(params_np["norm_f"], conv), blocks,
+                 None if unembed is None else conv(unembed))
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _layer(p: Block, cfg: ModelConfig, x, positions,
+           kv_cache: Optional[L.KVCache] = None, use_flash: bool = True):
+    """One layer; prefill without a cache, decode with one.  Returns (x,
+    the layer's new cache or None)."""
+    h = _apply_norm(cfg, p.norm1, x)
+    out, kv_cache = L.attn_apply(p.attn, _attn_cfg(cfg, p.kind), h,
+                                 positions, kv_cache=kv_cache,
+                                 use_flash=use_flash)
+    x = x + out
+    if p.norm2 is not None:
+        h2 = _apply_norm(cfg, p.norm2, x)
+        x = x + L.mlp_apply(p.mlp, h2, cfg.act)
+    return x, kv_cache
+
+
+def _embed(params: Model, cfg: ModelConfig, tokens, extra):
+    if extra is not None:
+        raise NotImplementedError(f"{cfg.arch}: no modality frontend in "
+                                  f"repro_torch (ROADMAP.md queue 1: "
+                                  f"cross-attention (encdec, vlm))")
+    x = params.embed[tokens]
+    if cfg.norm == "rms":  # sqrt(d_model) rounded to the activation dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x.to(cfg.tdtype)
+
+
+def logits_from_hidden(params: Model, cfg: ModelConfig, x):
+    """Unembed hidden states (tied or not); the final softcap in float32."""
+    w = params.unembed if params.unembed is not None else params.embed.T
+    logits = x @ w
+    if cfg.final_softcap > 0:
+        logits = L.softcap(logits.to(torch.float32), cfg.final_softcap)
+    return logits
+
+
+def hidden_forward(params: Model, cfg: ModelConfig, tokens, extra=None,
+                   use_flash: bool = True):
+    """Embed -> layers -> final norm.  Returns (hidden, aux); aux is 0.0
+    (it carries the MoE balance loss in the reference)."""
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens, extra)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for blk in params.blocks:
+        x, _ = _layer(blk, cfg, x, positions, use_flash=use_flash)
+    return _apply_norm(cfg, params.norm_f, x), 0.0
+
+
+def forward(params: Model, cfg: ModelConfig, tokens, extra=None,
+            use_flash: bool = True):
+    x, aux = hidden_forward(params, cfg, tokens, extra, use_flash)
+    return logits_from_hidden(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def decode_init(cfg: ModelConfig, batch: int, max_len: int,
+                device="cuda") -> List[Dict[str, L.KVCache]]:
+    """One entry per layer, ``{"kv": (k_buf, v_buf, length)}``; sliding-
+    window layers keep a ring of ``min(max_len, window)`` slots."""
+    check_supported(cfg)
+    cache = []
+    for kind in cfg.pattern:
+        acfg = _attn_cfg(cfg, kind)
+        eff = min(max_len, cfg.window) if acfg.window else max_len
+        cache.append({"kv": L.kv_cache_init(acfg, batch, eff, cfg.tdtype,
+                                            device)})
+    return cache
+
+
+def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
+    """tokens: (B, S); position: an int (every token at it) or a (B, S)
+    tensor.  Returns (logits, cache); the cache buffers are updated in
+    place."""
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens, None)
+    if isinstance(position, torch.Tensor) and position.dim() > 0:
+        positions = position
+    else:
+        positions = torch.full((B, S), int(position), device=x.device)
+    new_cache = []
+    for blk, entry in zip(params.blocks, cache):
+        x, kv = _layer(blk, cfg, x, positions, entry["kv"])
+        new_cache.append({"kv": kv})
+    x = _apply_norm(cfg, params.norm_f, x)
+    return logits_from_hidden(params, cfg, x), new_cache

@@ -187,3 +187,67 @@ def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         pak.paged_attention(q[..., :62].contiguous(), k[..., :62],
                             v[..., :62], table, lengths)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap", [
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 256, 256, 8, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 4, 1, 128, True, 128, 0.0),
+    (2, 128, 128, 4, 4, 64, False, 0, 0.0),
+    (1, 256, 256, 2, 2, 256, True, 0, 50.0),
+    (1, 100, 100, 4, 2, 120, True, 0, 0.0),      # D = 120, ragged tiles
+    (2, 200, 77, 4, 2, 32, True, 0, 30.0),       # S != T
+    (1, 160, 160, 2, 1, 16, False, 48, 0.0),     # window without causality
+    (1, 64, 16, 4, 2, 32, False, 8, 0.0),        # rows that see no key
+    (1, 40, 40, 2, 2, 8, True, 0, 0.0),          # D = 8
+    (1, 1100, 1100, 16, 8, 256, True, 512, 50.0),  # gemma2's head shape
+    (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),   # chatglm3-6b's prefill
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, tol, B, S,
+                                              T, H, KV, D, causal, window,
+                                              cap):
+    from repro_torch.kernels import flash_attention as fak
+    g = torch.Generator(device=cuda_device).manual_seed(S * H + D)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((B, T, KV, D), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((B, T, KV, D), generator=g, device=cuda_device).to(dtype)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    want = ref.flash_attention_plain(q, k, v, **kw)
+    before = fak.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fak.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda_device):
+    """q, k and v as head-sliced views of wider tensors (the kernel reads
+    through strides; nothing is copied)."""
+    from repro_torch.kernels import flash_attention as fak
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((2, 300, 8 + 2 + 2, 64), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = fak.flash_attention(q, k, v)
+    want = ref.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda_device):
+    from repro_torch.kernels import flash_attention as fak
+    q = torch.zeros((1, 8, 4, 16), device=cuda_device)
+    kv = torch.zeros((1, 8, 2, 16), device=cuda_device)
+    with pytest.raises(TypeError, match="share"):
+        fak.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fak.flash_attention(q[..., :12].contiguous(), kv[..., :12].contiguous(),
+                            kv[..., :12].contiguous())
+    with pytest.raises(ValueError, match="is on"):
+        fak.flash_attention(q, kv.cpu(), kv)

@@ -230,7 +230,8 @@ def test_cpu_tensors_take_the_plain_versions():
     _port_attention(_attention_case(1, *SWEEP[0]), torch.float32)
     ops.page_migrate(torch.zeros(3, 4), torch.ones(3, 4), [1], [2])
     assert ops.launch_counts() == {"select_topk": 0, "page_migrate": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

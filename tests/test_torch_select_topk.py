@@ -117,6 +117,13 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels.paged_attention\n"
         "import repro_torch.core.traffic, repro_torch.core.serving_torch\n"
         "import repro_torch.core.tiered_kv, repro_torch.serving_replay\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
+        "import repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.models.layers, repro_torch.models.registry\n"
+        "import repro_torch.serve, repro_torch.serve.step\n"
+        "import repro_torch.launch, repro_torch.launch.serve\n"
+        "from repro_torch.configs import all_arch_ids, get_config\n"
+        "[get_config(a) for a in all_arch_ids()]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -358,4 +358,5 @@ def test_serving_launches_nothing_on_the_cpu():
     cache = _port(CORNERS[1])
     _drive(cache, 20)
     assert ops.launch_counts() == {"select_topk": 0, "page_migrate": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0,
+                                   "flash_attention": 0}
