@@ -10,7 +10,8 @@ runs, in order (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
-   together);
+   together), and ptxas's register, shared-memory and spill report of the
+   flash_attention kernels;
 2. ``select_topk`` against its plain PyTorch version on the card: the
    conformance corpus (heavy ties, k in {0, 1, n}, ulp-apart non-ties,
    empty rows) and the main path's shape (8, 32783) with heats from a
@@ -57,14 +58,20 @@ runs, in order (any failure exits non-zero and prints no result):
 12. after freeing the serving pools, ``flash_attention`` against its
     plain version (f32 within 2e-5, bf16 within 2e-2) on the CPU test
     file's cases, gemma2-9b's head shape (D 256, softcap 50, window
-    4,096 at S = 4,608), h2o-danube-3-4b's (D 120) and chatglm3-6b's
-    prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)); times at the
-    last beside ``scaled_dot_product_attention`` (causal, GQA);
+    4,096 at S = 4,608), h2o-danube-3-4b's (D 120), chatglm3-6b's
+    prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)) and the wgmma
+    kernel's edges (ragged S and T, S != T with a softcap, a window
+    without causality, rows that see no key); every bf16 case the rule
+    sends to the wgmma kernel also runs the old mma kernel.  Times at
+    chatglm3-6b's prefill: the wgmma and the mma kernel in turns (new,
+    old, old, new), with achieved TFLOP/s and the share of the bound,
+    beside ``scaled_dot_product_attention`` (causal, GQA);
 13. the LM main path: ``build_prefill_step`` at chatglm3-6b's full width
     on 4 x 2,048 tokens with the launch counters set to 0 just before and
-    read just after (flash_attention exactly once per layer, 28), prefill
-    ms and tokens/s, last logits against ``FORCE="plain"``, and a
-    profiled prefill for the kernel's share of device time;
+    read just after (flash_attention exactly once per layer, 28, every
+    one on the wgmma kernel), prefill ms and tokens/s, last logits
+    against ``FORCE="plain"``, and a profiled prefill for the kernel's
+    share of device time;
 14. the port's launcher (``--arch chatglm3-6b --full --batch 4
     --prompt-len 512 --new-tokens 32``): ms per generated token, no
     kernel launched by decode, and its logits after teacher-forcing the
@@ -804,7 +811,8 @@ LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=512,
 LM_LOGIT_TOL = 3e-2
 
 #: the CPU test file's cases, then gemma2-9b's head shape (window 4,096
-#: bites at 4,608), h2o-danube-3-4b's, and chatglm3-6b's prefill
+#: bites at 4,608), h2o-danube-3-4b's, chatglm3-6b's prefill, and the edges
+#: of the wgmma kernel
 FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 128, 128, 4, 4, 64, True, 0, 0.0),
     (2, 256, 256, 8, 2, 64, True, 0, 0.0),
@@ -820,7 +828,16 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 4608, 4608, 16, 8, 256, True, 4096, 50.0),
     (1, 4608, 4608, 32, 8, 120, True, 4096, 0.0),
     (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),
+    # the wgmma kernel's edges (D 64 and 128): S and T not multiples of its
+    # 128-row tiles, S != T with a softcap, a window without causality,
+    # rows that see no key
+    (1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+    (2, 300, 517, 4, 1, 64, True, 0, 30.0),
+    (1, 640, 640, 8, 8, 128, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 128, False, 8, 0.0),
 ]
+#: the main path's shape (chatglm3-6b's prefill), the one timed
+FLASH_MAIN = FLASH_CASES[13]
 
 
 def flash_inputs(case, dtype, seed):
@@ -856,24 +873,40 @@ def phase_flash_attention():
             q, k, v = flash_inputs(case, dtype, seed=n)
             kw = dict(causal=case[6], window=case[7], logit_softcap=case[8])
             want = ref.flash_attention_plain(q, k, v, **kw)
-            got = ops.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if dtype == torch.bfloat16:
-                max_err = max(max_err, err)
-            if not torch.allclose(got.float(), want.float(), atol=tol,
-                                  rtol=tol):
-                fail(f"flash_attention differs from its plain version "
-                     f"({dtype}, case {case}): {err}")
-            n += 1
+            # the variant the rule picks (through ops), and the mma kernel
+            # too where the rule picks wgmma, so both stay held to the plain
+            # version at these shapes
+            runs = [("rule", lambda: ops.flash_attention(q, k, v, **kw))]
+            if fak.pick_variant(dtype, case[5]) == "wgmma":
+                runs.append(("mma", lambda: fak.flash_attention(
+                    q, k, v, variant="mma", **kw)))
+            for name, run in runs:
+                got = run()
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                if dtype == torch.bfloat16:
+                    max_err = max(max_err, err)
+                if not torch.allclose(got.float(), want.float(), atol=tol,
+                                      rtol=tol):
+                    fail(f"flash_attention ({name}) differs from its plain "
+                         f"version ({dtype}, case {case}): {err}")
+                n += 1
             del q, k, v, want, got
-    print(f"flash_attention: {n} cases within tolerance of the plain "
+    print(f"flash_attention: {n} runs within tolerance of the plain "
           f"version (f32 2e-5, bf16 2e-2; max bf16 abs err {max_err:.3g})",
           flush=True)
-    case = FLASH_CASES[-1]
-    B, S, T, H, KV, D, causal, window, _ = case
-    q, k, v = flash_inputs(case, torch.bfloat16, seed=99)
-    kernel_ms = cuda_ms(lambda: fak.flash_attention(q, k, v))
+    B, S, T, H, KV, D, causal, window, _ = FLASH_MAIN
+    q, k, v = flash_inputs(FLASH_MAIN, torch.bfloat16, seed=99)
+    variant = fak.pick_variant(q.dtype, D)
+    if variant != "wgmma":
+        fail(f"the rule picks {variant} at the main shape, not wgmma")
+    # the new and the old bf16 kernel in turns (new, old, old, new)
+    turns = {"wgmma": [], "mma": []}
+    for name in ("wgmma", "mma", "mma", "wgmma"):
+        turns[name].append(cuda_ms(
+            lambda: fak.flash_attention(q, k, v, variant=name)))
+    kernel_ms = statistics.mean(turns["wgmma"])
+    mma_ms = statistics.mean(turns["mma"])
     plain_ms = cuda_ms(lambda: ref.flash_attention_plain(q, k, v))
     # yardstick: SDPA in its (B, H, S, D) layout (the transposes not timed)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -890,12 +923,18 @@ def phase_flash_attention():
     bound_ms = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / BF16_FLOPS_PER_S \
         >= moved / HBM_BYTES_PER_S else "bytes"
+    tflops = flops / kernel_ms / 1e9
     print(f"flash_attention at chatglm3-6b's prefill (q {tuple(q.shape)}, "
-          f"k/v {tuple(k.shape)} bf16, causal): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by} ({flops} flops, {moved} bytes)",
-          flush=True)
+          f"k/v {tuple(k.shape)} bf16, causal): wgmma kernel "
+          f"{kernel_ms:.4f} ms ({tflops:.1f} TFLOP/s, "
+          f"{bound_ms / kernel_ms:.1%} of the bound), mma kernel "
+          f"{mma_ms:.4f} ms ({flops / mma_ms / 1e9:.1f} TFLOP/s), turns "
+          f"{json.dumps(turns)}, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({flops} flops, {moved} bytes)", flush=True)
     return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
+            "variant": variant, "mma_ms": mma_ms, "turns_ms": turns,
+            "achieved_tflops": tflops, "bound_share": bound_ms / kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -923,7 +962,7 @@ def profile_prefill(prefill, model, batch):
             continue
         busy_us += us
         rows.append((us, e.key[:80], e.count))
-        if "flash_bf16_kernel" in e.key or "flash_f32_kernel" in e.key:
+        if any(f"flash_{v}_kernel" in e.key for v in ("wgmma", "mma", "fma")):
             flash_us += us
     rows.sort(reverse=True)
     return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
@@ -936,6 +975,7 @@ def phase_lm_prefill():
     """chatglm3-6b at full width: build_prefill_step on (4, 2,048)."""
     import numpy as np
     import torch
+    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
@@ -958,10 +998,14 @@ def phase_lm_prefill():
     logits = prefill(model, batch)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    by_variant = dict(fak.launches_by_variant)
     if launches["flash_attention"] != cfg.n_layers or \
             sum(launches.values()) != cfg.n_layers:
         fail(f"prefill launches {launches}, expected flash_attention "
              f"{cfg.n_layers} and nothing else")
+    if by_variant != {"fma": 0, "mma": 0, "wgmma": cfg.n_layers}:
+        fail(f"prefill's flash launches by variant {by_variant}, expected "
+             f"all {cfg.n_layers} on the wgmma kernel")
     if not (logits.shape == (B, 1, cfg.padded_vocab)
             and bool(torch.isfinite(logits.float()).all())):
         fail("prefill logits non-finite or misshapen")
@@ -985,6 +1029,7 @@ def phase_lm_prefill():
              "plain_prefill_ms": plain_prefill_ms,
              "last_logits_rel_err_vs_plain": err,
              "flash_launches": launches["flash_attention"],
+             "flash_launches_by_variant": by_variant,
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
              "profile": prof}
     print(f"LM prefill ({cfg.arch} full width, {cfg.n_layers} layers, "
@@ -1089,6 +1134,11 @@ def main() -> int:
     seconds = build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(seconds)}", flush=True)
+    # ptxas's registers, shared memory and spills of each flash kernel
+    print("\n".join(line for line in
+                    build.build_log("flash_attention").splitlines()
+                    if line.startswith("ptxas") or "spill" in line
+                    or "arning" in line), flush=True)
 
     topk_timing = phase_select_topk("cuda")
     phase_small_reference()
@@ -1129,8 +1179,11 @@ def main() -> int:
             {"serving": serving_launches["page_migrate"]}),
         row("paged_attention", pak, attention_timing,
             {"serving": serving_launches["paged_attention"]}),
-        row("flash_attention", fak, flash_timing,
-            {"lm_prefill": prefill_launches["flash_attention"]}),
+        dict(row("flash_attention", fak, flash_timing,
+                 {"lm_prefill": prefill_launches["flash_attention"]}),
+             variant=flash_timing["variant"],
+             mma_ms=flash_timing["mma_ms"],
+             achieved_tflops=flash_timing["achieved_tflops"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

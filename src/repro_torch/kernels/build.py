@@ -3,9 +3,12 @@
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface under the
 checkout's ``build/`` directory, and loaded with ``ctypes`` at first use.
-Library names carry a hash of the source, so an edited kernel never loads a
-stale build.  :func:`build` starts one ``nvcc`` per source that is not built
-yet, all at once, and waits for all of them.
+Library names carry a hash of the source, of every ``csrc`` header it
+includes (``#include "x.cuh"``, followed through headers) and of the nvcc
+flags, so an edited kernel, header or flag never loads a stale build.
+:func:`build` starts one ``nvcc`` per source that is not built yet, all at
+once, and waits for all of them; each build's compiler output is kept
+beside its library (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs: ``<checkout>/build/`` (listed in .gitignore)
@@ -27,7 +31,13 @@ KERNELS = ("select_topk", "page_migrate", "paged_attention",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+#: flags of one kernel on top of NVCC_FLAGS: flash_attention keeps line
+#: info and ptxas's register and spill report (``-Xptxas -v``)
+KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "flash_attention": ("-lineinfo", "-Xptxas", "-v"),
+}
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -40,10 +50,39 @@ def _nvcc() -> str:
     return nvcc
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags kernel ``name`` is built with."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes by a quoted
+    ``#include``, followed through included files, in first-seen order."""
+    order = [CSRC / f"{name}.cu"]
+    i = 0
+    while i < len(order):
+        for inc in _INCLUDE.findall(order[i].read_text()):
+            path = CSRC / inc
+            if path.is_file() and path not in order:
+                order.append(path)
+        i += 1
+    return order
+
+
 def library_path(name: str) -> Path:
     """The shared library built from ``csrc/<name>.cu`` (hash-named)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the build of kernel ``name`` ("" if it was
+    not built in this checkout)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
@@ -60,7 +99,8 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -71,6 +111,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

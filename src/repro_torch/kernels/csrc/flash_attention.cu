@@ -12,109 +12,105 @@
 // softmax are float32, the output has q's dtype, and a row that sees no key
 // gives zeros (out = acc / max(l, 1e-30)), as in the TPU kernel.
 //
-// Design.  The TPU grid (B * KV, q blocks, kv blocks) runs its kv axis in
-// order and carries the softmax state (m, l, acc) in VMEM from one kv step
-// to the next.  Blocks on the card run in no order, so here one block owns a
-// tile of query rows of one query head and walks the key tiles itself, in a
-// loop that starts at the window's first tile and ends at the causal limit:
-// tiles the mask empties entirely are skipped (the TPU kernel masks them;
-// they change nothing, so the result is the same).  Tiles that lie wholly
-// inside the mask skip the mask arithmetic.  Heavy causal tiles (the last
-// query rows) are scheduled first.  q, k and v are read in the reference's
-// layout, q (B, S, H, D) and k/v (B, T, KV, D), through their strides (the
-// last dim contiguous), so there is no transpose copy; the output is a new
-// contiguous (B, S, H, D).
+// Three kernels compute it; the wrapper's variant(dtype, D) picks one:
+//   wgmma  bfloat16 at D = 64 or 128 (the LM prefill path): a TMA ring and
+//          warp-specialised wgmma;
+//   mma    bfloat16 at any other D up to 256: mma.sync m16n8k16;
+//   fma    float32: the FMA units.
 //
-// GQA: each query head has its own block, and the G blocks of one KV head
-// read the same K/V tiles, mostly from the 50 MB L2 (at the main shape K
-// and V are 4.2 MB each).  Sharing a tile across the group inside one block
-// would cut those L2 reads but multiply the block's accumulator by G; that
-// is later work.
+// Common design.  The TPU grid (B * KV, q blocks, kv blocks) runs its kv
+// axis in order and carries the softmax state (m, l, acc) in VMEM from one
+// kv step to the next.  Blocks on the card run in no order, so here one
+// block owns a tile of query rows of one query head and walks the key tiles
+// itself, in a loop that starts at the window's first tile and ends at the
+// causal limit: tiles the mask empties entirely are skipped (the TPU kernel
+// masks them; they change nothing, so the result is the same).  Tiles that
+// lie wholly inside the mask skip the mask arithmetic.  The grid is (H, B,
+// query tiles): heavy causal tiles (the last query rows) are scheduled
+// first, and the G heads of one KV group are neighbouring blocks, so their
+// K/V tiles are read from the 50 MB L2 (at the main shape K and V are 4.2
+// MB each).  q, k and v are read in the reference's layout, q (B, S, H, D)
+// and k/v (B, T, KV, D), through their strides (the last dim contiguous),
+// so there is no transpose copy; the output is a new contiguous
+// (B, S, H, D).  The scale is applied to the float32 product q . k, not to
+// q: scaling q first would round q * scale to bf16 for the tensor cores.
+// (The mma and fma kernels put one block on each query tile; the wgmma
+// kernel walks the same tiles, in the same order, from persistent blocks.)
 //
-// bfloat16 (the serving path): 4 warps, 64 query rows a block, 16 a warp;
-// key tiles of 64.  Q, K and V tiles sit in shared memory (rows padded by
-// 16 bytes, so the fragment reads below hit distinct banks; D is padded
-// with zeros to the product depth 16).  S = Q K^T and O += P V run on the
-// tensor cores as mma.sync m16n8k16 with bf16 inputs and float32
-// accumulation; the online softmax runs in registers on the S fragments,
-// and P is rounded to bf16 only as the input of P V (l sums the float32
-// p).  The scale is applied to the float32 product q . k instead of to q:
-// scaling q first would round q * scale to bf16 for the tensor cores,
-// while scaling the exact-product sum differs from the reference's f32
-// (q * scale) . k only by float32 rounding.  The accumulator is 16 x D a
-// warp in registers (D / 2 floats a thread, 128 at D = 256): the kernel is
-// compiled for D <= 64, <= 128 and <= 256.
+// wgmma (bfloat16, D = 64 or 128).  The grid is persistent: one block an
+// SM (its shared memory allows no more), each walking a share of the work
+// items, an item being 128 query rows of one head (heaviest first, the G
+// heads of a KV group neighbours; a block that finishes early takes the
+// heaviest item left, from a counter in device memory).  A block has three
+// warpgroups (384 threads).  Warpgroup 0 is the producer: it gives
+// registers away (setmaxnreg 40) and one of its threads issues every TMA
+// load, item after item: Q into one of two buffers, then K and V in tiles
+// of 128 keys into a ring of 2 stages.  Each stage has a K-full, a V-full,
+// a K-empty and a V-empty mbarrier: K of a tile is given back once S is
+// computed, V one step later, after P V.  So the next item's Q and first
+// tiles load while this item's last tiles run.  Warpgroups 1 and 2 are
+// consumers (setmaxnreg 232), 64 query rows of the item each.  S = Q K^T
+// is wgmma m64n128k16 with both operands in shared memory (K-major);
+// O += P V is wgmma with P (rounded to bf16) in registers and V from
+// shared memory as an MN-major operand (the transpose bit), so V stays in
+// the (keys, D) layout it was read in.  A consumer issues S of tile i and
+// P V of tile i - 1 back to back, waits for S alone, and runs the softmax
+// of tile i while that P V runs on the tensor cores (S, P, O and the row
+// state take about 200 registers, which setmaxnreg provides).  The maps
+// are 4-D over the public layouts, (D, H, S, B) for q and out and
+// (D, KV, T, B) for k and v, encoded on the host from the byte strides; a
+// row of D = 128 bf16 is wider than the 128-byte swizzle span, so every
+// tile is loaded as boxes of 64 columns.  TMA fills rows past S or T with
+// zeros.  The softmax works in log2 units: p = 2^(s * scale * log2(e) -
+// m * scale * log2(e)), one FFMA and one ex2 an element; O is rescaled only
+// when some row of the warp has a new maximum; l sums each thread's
+// float32 p and is reduced across the 4 lanes of a row once, at the end.
+// P is rounded to bf16 only as the input of P V.  The output goes through
+// shared memory (swizzled as the out map is) and leaves by a TMA store
+// that runs on while the next item starts, rows past S not written.
+// Shared memory at D = 128: Q 2 x 32 KB + 2 x (32 + 32) KB + out 32 KB.
 //
-// float32: tensor cores would round the inputs (TF32 keeps 10 bits), so
-// float32 runs on the FMA units: 4 warps, 32 query rows a block, key tiles
-// of 32; scores one (row, key) dot product a thread with the row's scaled q
-// in shared memory, the softmax one warp per row, the accumulator (32 x D a
-// block) in registers.
+// mma (bfloat16, other D): 4 warps, 64 query rows a block, 16 a warp; key
+// tiles of 64.  Q, K and V tiles sit in shared memory (rows padded by 16
+// bytes, so the fragment reads below hit distinct banks; D is padded with
+// zeros to the product depth 16), loaded synchronously between two
+// barriers.  S = Q K^T and O += P V run as mma.sync m16n8k16 with bf16
+// inputs and float32 accumulation; the online softmax runs in registers on
+// the S fragments, and P is rounded to bf16 only as the input of P V (l sums
+// the float32 p).  The accumulator is 16 x D a warp in registers (D / 2
+// floats a thread, 128 at D = 256): the kernel is compiled for D <= 64,
+// <= 128 and <= 256.  Each query head has its own block.
+//
+// fma (float32): tensor cores would round the inputs (TF32 keeps 10 bits),
+// so float32 runs on the FMA units: 4 warps, 32 query rows a block, key
+// tiles of 32; scores one (row, key) dot product a thread with the row's
+// scaled q in shared memory, the softmax one warp per row, the accumulator
+// (32 x D a block) in registers.
 //
 // What bounds it on the card.  Operations: 4 * D flops for every (query,
 // key) pair the mask keeps, times B * H; at the serving shape (B 4, S = T =
 // 2048, H 32, KV 2, D 128, causal) that is 1.375e11 flops, 0.139 ms at
 // 989 TFLOP/s bf16, against 142.6 MB of q, k, v and out (0.043 ms at
-// 3.35 TB/s).  This first kernel issues mma.sync with synchronous tile
-// loads and two barriers a tile, so it reaches only part of the tensor-core
-// rate; wgmma, TMA and a pipelined producer warp are later work.
+// 3.35 TB/s).  The wgmma kernel runs at about 40% of the tensor-core rate
+// there; the softmax between the two products is what it has not hidden
+// (PERF.md has the measurements).
 //
 // C interface: flash_attention_launch(...) launches on the given stream,
-// allocates nothing, and returns cudaGetLastError().
+// allocates nothing, and returns 0 or a CUDA error (negative: a tensor map
+// could not be encoded).
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: m's start
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-// ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16
-// ---------------------------------------------------------------------------
-constexpr int kBM = 64;  // query rows a block (16 a warp)
-constexpr int kBN = 64;  // keys a tile
-constexpr int kNT = kBN / 8;  // 8-key column tiles of S
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + rows) of a (rows_total, D) matrix with row stride `stride`
-// (elements) into shared memory with row stride ld, zero-filling rows past
-// rows_total and columns D..Dk-1.  D is a multiple of 8 (16-byte vectors).
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
-                                          int r0, int rows, int rows_total, int D,
-                                          int Dk, int ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vpr = Dk / kVec;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i - r * vpr) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows_total && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 struct Args {
   const void* q;
@@ -149,22 +145,72 @@ __device__ __forceinline__ bool tile_needs_mask(const Args& a, int q0, int rows,
   return false;
 }
 
+// Whether query position qpos sees key position kpos.
+__device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
+  return kpos < a.T && (!a.causal || kpos <= qpos) &&
+         (a.window <= 0 || kpos > qpos - a.window);
+}
+
+// -inf (not kNegInf) so that exp(s - m) is 0 even while m is kNegInf
+__device__ __forceinline__ float masked() {
+  return __int_as_float(static_cast<int>(0xff800000u));
+}
+
 __device__ __forceinline__ float score(const Args& a, float s, int qpos, int kpos,
                                        bool need_mask) {
   if (a.cap > 0.0f) s = a.cap * tanhf(s / a.cap);
-  if (need_mask) {
-    const bool ok = kpos < a.T && (!a.causal || kpos <= qpos) &&
-                    (a.window <= 0 || kpos > qpos - a.window);
-    // -inf (not kNegInf) so that exp(s - m) is 0 even while m is kNegInf
-    if (!ok) s = __int_as_float(static_cast<int>(0xff800000u));
-  }
+  if (need_mask && !visible(a, qpos, kpos)) s = masked();
   return s;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+constexpr int kBM = 64;  // query rows a block (16 a warp)
+constexpr int kBN = 64;  // keys a tile
+constexpr int kNT = kBN / 8;  // 8-key column tiles of S
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// rows [r0, r0 + rows) of a (rows_total, D) matrix with row stride `stride`
+// (elements) into shared memory with row stride ld, zero-filling rows past
+// rows_total and columns D..Dk-1.  D is a multiple of 8 (16-byte vectors).
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
+                                          int r0, int rows, int rows_total, int D,
+                                          int Dk, int ld) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vpr = Dk / kVec;
+  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+    const int r = i / vpr, c = (i - r * vpr) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows_total && c < D)
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
 }
 
 // NDT: the most 8-wide column tiles of D this instantiation takes.
 template <int NDT>
 __global__ void __launch_bounds__(kThreads)
-flash_bf16_kernel(const Args a) {
+flash_mma_kernel(const Args a) {
   using T = __nv_bfloat16;
   // grid (H, B, query tiles): the heavy causal tiles (last rows) of every
   // head start first, and neighbouring blocks share K/V tiles in L2
@@ -303,6 +349,389 @@ flash_bf16_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at D = 64 or 128: TMA ring, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+constexpr int kWgRows = 64;                      // query rows a consumer
+constexpr int kWgConsumers = 2;                  // consumer warpgroups
+constexpr int kWgBM = kWgRows * kWgConsumers;    // query rows a work item
+constexpr int kWgBN = 128;                       // keys a tile
+constexpr int kWgStages = 2;                     // K/V ring depth
+constexpr int kWgThreads = 128 * (1 + kWgConsumers);
+constexpr int kBoxCols = 64;    // bf16 columns a box: the 128-byte swizzle span
+constexpr int kRowBytes = 128;  // bytes a box row
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 40 * 128 + 232 * 256
+                                                        // = 168 * 384
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, in bytes from a 1,024-byte aligned base:
+// every tile is D / 64 boxes of (rows x 128 bytes).  Q has two buffers, so
+// the next work item's Q loads while this one runs.
+template <int D>
+struct WgLayout {
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kQBox = kWgBM * kRowBytes;
+  static constexpr int kKBox = kWgBN * kRowBytes;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKBytes = kBoxes * kKBox;
+  static constexpr int q = 0;                            // 2 Q tiles
+  static constexpr int k = q + 2 * kQBytes;              // kWgStages K tiles
+  static constexpr int v = k + kWgStages * kKBytes;      // kWgStages V tiles
+  static constexpr int o = v + kWgStages * kKBytes;      // the output tile
+  static constexpr int bars = o + kQBytes;
+  static constexpr int items = bars + 8 * (4 + 4 * kWgStages);  // 2 ints
+  static constexpr int bytes = items + 8;
+};
+
+// The work items (query tile, batch row, head) of one launch, heaviest
+// first: item w is query tile n_qt - 1 - w / (B * H), batch row
+// (w % (B * H)) / H and head w % H, so the G heads of a KV group are
+// neighbours and share K/V tiles in L2.  Block c starts with item c and
+// then takes the next item not yet taken from a counter in device memory
+// (zero at launch), so a block that finishes early takes the heaviest
+// item left.
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Accumulator layout of wgmma m64nN (f32), per warpgroup: warp w holds rows
+// 16w .. 16w + 15; lane (g = lane / 4, t = lane % 4) holds, for every
+// 8-column group j, d[4j], d[4j + 1] at row g, columns 8j + 2t, 8j + 2t + 1
+// and d[4j + 2], d[4j + 3] at row g + 8.  The A fragment of a k16 step
+// from registers is the same layout over 16 columns, so P's fragments are
+// S's accumulators packed to bf16 pairs.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, const Args a, int B,
+                   int* next_item) {
+  using L = WgLayout<D>;
+  constexpr int kSteps = D / 16;       // k16 steps of S = Q K^T
+  constexpr int kPSteps = kWgBN / 16;  // k16 steps of O += P V
+  constexpr int kSAcc = kWgBN / 2;     // S accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bars);  // 2
+  uint64_t* q_empty = q_full + 2;                                 // 2
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+  // the item whose Q is in Q buffer 0 or 1, written before its Q load;
+  // n_items or more when no item is left
+  volatile int* item_of_q = reinterpret_cast<volatile int*>(sm + L::items);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(q_full + s, 1);
+      sm90::mbar_init(q_empty + s, kWgConsumers * 128);
+    }
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(k_full + s, 1);
+      sm90::mbar_init(v_full + s, 1);
+      sm90::mbar_init(k_empty + s, kWgConsumers * 128);
+      sm90::mbar_init(v_empty + s, kWgConsumers * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_qt = (a.S + kWgBM - 1) / kWgBM;
+  const int n_items = n_qt * B * a.H;
+
+  // the warpgroup, broadcast from lane 0 so the role branch below is
+  // warp-uniform to the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: one thread keeps Q and the K/V ring full, item after item.
+    // K and V have their own empty barriers: K of a tile is free once S is
+    // computed, V only after P V, one tile later.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      int it = 0;  // K/V tiles loaded so far
+      int w = blockIdx.x;
+      for (int n = 0;; ++n) {
+        const int qb = n & 1;
+        sm90::mbar_wait(q_empty + qb, ((n >> 1) & 1) ^ 1);
+        item_of_q[qb] = w;
+        if (w >= n_items) {
+          sm90::mbar_arrive(q_full + qb);  // no item left: the consumers stop
+          break;
+        }
+        const int next = gridDim.x + atomicAdd(next_item, 1);
+        const int q0 = (n_qt - 1 - w / (B * a.H)) * kWgBM;
+        const int b = (w % (B * a.H)) / a.H, h = w % a.H, kvh = h / a.G;
+        sm90::mbar_expect_tx(q_full + qb, L::kQBytes);
+        for (int c = 0; c < L::kBoxes; ++c)
+          sm90::tma_load_4d(sm + L::q + qb * L::kQBytes + c * L::kQBox, &tq,
+                            q_full + qb, c * kBoxCols, h, q0, b);
+        int lo, hi;
+        tile_range(a, q0, kWgBM, kWgBN, &lo, &hi);
+        for (int kt = lo; kt < hi; ++kt, ++it) {
+          const int s = it % kWgStages;
+          const uint32_t free = ((it / kWgStages) & 1) ^ 1;
+          sm90::mbar_wait(k_empty + s, free);
+          sm90::mbar_expect_tx(k_full + s, L::kKBytes);
+          for (int c = 0; c < L::kBoxes; ++c)
+            sm90::tma_load_4d(sm + L::k + s * L::kKBytes + c * L::kKBox, &tk,
+                              k_full + s, c * kBoxCols, kvh, kt * kWgBN, b);
+          sm90::mbar_wait(v_empty + s, free);
+          sm90::mbar_expect_tx(v_full + s, L::kKBytes);
+          for (int c = 0; c < L::kBoxes; ++c)
+            sm90::tma_load_4d(sm + L::v + s * L::kKBytes + c * L::kKBox, &tv,
+                              v_full + s, c * kBoxCols, kvh, kt * kWgBN, b);
+        }
+        w = next;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows q0 + 64 cw .. q0 + 64 cw + 63
+  // of each work item
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;
+  const int ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32, g = lane / 4, t4 = lane % 4;
+  const bool capped = a.cap > 0.0f;
+  const float cap_in = capped ? a.scale / a.cap : 0.0f;
+  // scores in log2 units: the softmax scale (or, under a softcap, which
+  // applies it first, 1) times log2(e)
+  const float mult = (capped ? 1.0f : a.scale) * kLog2e;
+  int r0 = 0, row0 = 0, row1 = 0;  // the item's first row; this lane's rows
+  uint32_t q_base = 0;             // this warpgroup's rows of the item's Q
+  float o[D / 2];
+  float m0, m1;                      // row maxima of rows row0, row1
+  float l0, l1;                      // this lane's part of the row sums
+  float sc[kSAcc];                   // S of the newest tile, then its p
+  uint32_t p[kPSteps][4];            // P of the tile whose P V is next
+  float c0 = 1.0f, c1 = 1.0f;        // rescale of o before that P V
+  const auto phase = [](int i) {
+    return static_cast<uint32_t>((i / kWgStages) & 1);
+  };
+  // S = Q K^T of ring slot i (64 rows x 128 keys), issued, not awaited
+  const auto issue_s = [&](int i) {
+    const uint32_t k_base =
+        sm90::smem_addr(sm + L::k + (i % kWgStages) * L::kKBytes);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the 128-byte row
+      sm90::wgmma_ss_n128(
+          sc, sm90::desc_sw128(q_base + (kk / 4) * L::kQBox + off, 16, 1024),
+          sm90::desc_sw128(k_base + (kk / 4) * L::kKBox + off, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+  };
+  // O += P V of ring slot i: V (128 keys x D) is MN-major, 8 keys a
+  // 1,024-byte group, 64 columns a box; issued, not awaited
+  const auto issue_pv = [&](int i) {
+    const uint32_t v_base =
+        sm90::smem_addr(sm + L::v + (i % kWgStages) * L::kKBytes);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) sm90::fence_operand(o[j]);
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sm90::fence_operand(p[j][r]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j) {
+      const uint64_t dv =
+          sm90::desc_sw128(v_base + j * 16 * kRowBytes, L::kKBox, 8 * kRowBytes);
+      if constexpr (D == 128) {
+        sm90::wgmma_rs_n128(o, p[j], dv);
+      } else {
+        sm90::wgmma_rs_n64(o, p[j], dv);
+      }
+    }
+    sm90::wgmma_commit();
+  };
+  // softcap, mask and online softmax of sc (keys k0 ..): sc becomes p,
+  // m and l move on, and c0, c1 say how o must be rescaled
+  const auto softmax = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kSAcc; ++j) sm90::fence_operand(sc[j]);
+    if (capped) {
+#pragma unroll
+      for (int j = 0; j < kSAcc; ++j) sc[j] = a.cap * tanhf(sc[j] * cap_in);
+    }
+    if (tile_needs_mask(a, r0, kWgRows, k0, kWgBN)) {
+#pragma unroll
+      for (int j = 0; j < kWgBN / 8; ++j) {
+        const int kpos = k0 + 8 * j + 2 * t4;
+        if (!visible(a, row0, kpos)) sc[4 * j] = masked();
+        if (!visible(a, row0, kpos + 1)) sc[4 * j + 1] = masked();
+        if (!visible(a, row1, kpos)) sc[4 * j + 2] = masked();
+        if (!visible(a, row1, kpos + 1)) sc[4 * j + 3] = masked();
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    c0 = ex2((m0 - mx0) * mult);
+    c1 = ex2((m1 - mx1) * mult);
+    const float b0 = mx0 * mult, b1 = mx1 * mult;
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j) {
+      sc[4 * j] = ex2(fmaf(sc[4 * j], mult, -b0));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], mult, -b0));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], mult, -b1));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], mult, -b1));
+      sum0 += sc[4 * j] + sc[4 * j + 1];
+      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+  };
+  // once the last P V has finished: o *= c (skipped while no row of the
+  // warp has a new maximum, c being 1 then), and p (bf16) from sc
+  const auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) sm90::fence_operand(o[j]);
+    if (__any_sync(0xffffffffu, c0 != 1.0f || c1 != 1.0f)) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j) {
+      p[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
+      p[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+      p[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+      p[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+    }
+  };
+  // a tile these rows do not see: wait for it and give it back
+  const auto skip = [&](int i) {
+    const int s = i % kWgStages;
+    sm90::mbar_wait(k_full + s, phase(i));
+    sm90::mbar_arrive(k_empty + s);
+    sm90::mbar_wait(v_full + s, phase(i));
+    sm90::mbar_arrive(v_empty + s);
+  };
+
+  uint8_t* o_tile = sm + L::o + cw * kWgRows * kRowBytes;
+  const int lr = warp * 16 + g;  // local rows lr and lr + 8 share lr % 8
+  int it = 0;  // K/V tiles consumed so far
+  for (int n = 0;; ++n) {
+    const int qb = n & 1;
+    sm90::mbar_wait(q_full + qb, (n >> 1) & 1);
+    const int w = item_of_q[qb];
+    if (w >= n_items) break;
+    const int q0 = (n_qt - 1 - w / (B * a.H)) * kWgBM;
+    const int b = (w % (B * a.H)) / a.H, h = w % a.H;
+    r0 = q0 + cw * kWgRows;
+    row0 = r0 + warp * 16 + g;
+    row1 = row0 + 8;
+    q_base = sm90::smem_addr(sm + L::q + qb * L::kQBytes) +
+             cw * kWgRows * kRowBytes;
+    // the item's tiles [lo, hi); the ones these 64 rows see, [first,
+    // last): a window may skip some of the item's first tiles
+    int lo, hi, first, last;
+    tile_range(a, q0, kWgBM, kWgBN, &lo, &hi);
+    tile_range(a, r0, kWgRows, kWgBN, &first, &last);
+    first = min(max(first, lo), hi);
+    last = max(first, min(last, hi));
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+    m0 = m1 = kNegInf;
+    l0 = l1 = 0.0f;
+    const int base = it;  // ring index of the item's first tile
+    int i = 0;
+    for (; lo + i < first; ++i) skip(base + i);
+    if (first < last) {
+      // the first tile alone; then tile i's S = Q K^T runs beside tile
+      // i - 1's P V, and i's softmax overlaps that P V on the tensor cores
+      sm90::mbar_wait(k_full + (base + i) % kWgStages, phase(base + i));
+      issue_s(base + i);
+      sm90::wgmma_wait<0>();
+      sm90::mbar_arrive(k_empty + (base + i) % kWgStages);
+      softmax(first * kWgBN);
+      rescale_and_pack();
+      for (++i; lo + i < last; ++i) {
+        const int prev = i - 1;
+        sm90::mbar_wait(k_full + (base + i) % kWgStages, phase(base + i));
+        issue_s(base + i);
+        sm90::mbar_wait(v_full + (base + prev) % kWgStages, phase(base + prev));
+        issue_pv(base + prev);
+        sm90::wgmma_wait<1>();  // S of tile i is in; P V of i - 1 may run on
+        sm90::mbar_arrive(k_empty + (base + i) % kWgStages);
+        softmax((lo + i) * kWgBN);
+        sm90::wgmma_wait<0>();
+        sm90::mbar_arrive(v_empty + (base + prev) % kWgStages);
+        rescale_and_pack();
+      }
+      const int prev = i - 1;
+      sm90::mbar_wait(v_full + (base + prev) % kWgStages, phase(base + prev));
+      issue_pv(base + prev);
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) sm90::fence_operand(o[j]);
+      sm90::mbar_arrive(v_empty + (base + prev) % kWgStages);
+    }
+    for (; lo + i < hi; ++i) skip(base + i);
+
+    sm90::mbar_arrive(q_empty + qb);  // the item's Q is no longer read
+    it += hi - lo;
+
+    // out = acc / max(l, 1e-30) as bf16, through shared memory (the out
+    // map's swizzle: 16-byte chunk c of row r at c ^ (r % 8)) and a TMA
+    // store; the previous item's store must have read the tile first
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+    if (ct == 0) sm90::tma_store_wait_read();
+    sm90::named_barrier(1 + cw, 128);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      uint8_t* row = o_tile + (j / 8) * L::kQBox + lr * kRowBytes +
+                     (((j % 8) ^ (lr % 8)) << 4) + 4 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(row) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * kRowBytes) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(1 + cw, 128);
+    if (ct == 0 && r0 < a.S) {
+      for (int c = 0; c < L::kBoxes; ++c)
+        sm90::tma_store_4d(&to, o_tile + c * L::kQBox, c * kBoxCols, h, r0, b);
+      sm90::tma_store_commit();
+    }
+  }
+  if (ct == 0) sm90::tma_store_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA units
 // ---------------------------------------------------------------------------
 constexpr int kFM = 32;  // query rows a block (8 a warp)
@@ -321,7 +750,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) flash_fma_kernel(const Args a) {
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / a.G;
   const int qt = gridDim.z - 1 - blockIdx.z;
   const int q0 = qt * kFM;
@@ -426,10 +855,10 @@ int launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream, const Args& a)
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory a block needs (bytes): at D = 256, 101,376 (bf16) and
-// 102,784 (float32), within the 227 KB a block may use.
-size_t smem_bytes(int dtype, int D) {
-  if (dtype == 1) {
+// Shared memory a block needs (bytes): at D = 256, 101,376 (mma) and
+// 102,784 (fma), within the 227 KB a block may use.
+size_t smem_bytes(int variant, int D) {
+  if (variant == 1) {
     const int ld = ((D + 15) & ~15) + 8;
     return static_cast<size_t>(kBM + 2 * kBN) * ld * 2;
   }
@@ -437,31 +866,125 @@ size_t smem_bytes(int dtype, int D) {
                                  2 * kFM);
 }
 
+// cuTensorMapEncodeTiled, found through the runtime, so the library needs
+// no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over (D, heads, positions, batch) of a tensor with element
+// strides (head, position, batch), read in boxes of 64 columns x `rows`
+// positions of one head, 128-byte swizzled.
+bool encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
+                int B, long long s_head, long long s_pos, long long s_batch,
+                int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_pos) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const Args& a, int B, int KV, int* next_item,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  const long long o_ss = static_cast<long long>(a.H) * D;
+  if (!encode_map(&tq, a.q, D, a.H, a.S, B, a.q_sh, a.q_ss, a.q_sb, kWgBM) ||
+      !encode_map(&to, a.out, D, a.H, a.S, B, D, o_ss, o_ss * a.S, kWgRows))
+    return -1;
+  if (a.T > 0) {
+    if (!encode_map(&tk, a.k, D, KV, a.T, B, a.k_sh, a.k_st, a.k_sb, kWgBN) ||
+        !encode_map(&tv, a.v, D, KV, a.T, B, a.v_sh, a.v_st, a.v_sb, kWgBN))
+      return -1;
+  } else {
+    tk = tv = tq;  // no key tile is loaded
+  }
+  const size_t smem = WgLayout<D>::bytes + 1024;  // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent: a block an SM, each walking its share of the work items
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items =
+      static_cast<long long>((a.S + kWgBM - 1) / kWgBM) * B * a.H;
+  if (items > (1ll << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  flash_wgmma_kernel<D>
+      <<<blocks, kWgThreads, smem, stream>>>(tq, tk, tv, to, a, B, next_item);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides in elements: (batch, position,
-// head) of q (B, S, H, D) and k/v (B, T, KV, D); the last dim is contiguous.
-// out is a contiguous (B, S, H, D).  D is a multiple of 8, at most 256.
+// variant: 0 = fma (float32), 1 = mma (bfloat16), 2 = wgmma (bfloat16, D 64
+// or 128).  Strides in elements: (batch, position, head) of q (B, S, H, D)
+// and k/v (B, T, KV, D); the last dim is contiguous, and every stride and
+// base is 16-byte aligned.  out is a contiguous (B, S, H, D).  D is a
+// multiple of 8, at most 256.  next_item: one int32 of device memory that
+// is 0 at launch (the wgmma kernel's work counter; the others ignore it).
+// Returns -1 if a tensor map could not be encoded.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B,
+    const void* q, const void* k, const void* v, void* out, int variant, int B,
     int S, int T, int H, int KV, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, float scale, float cap,
-    int causal, int window, void* stream) {
+    int causal, int window, void* next_item, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0) return static_cast<int>(cudaGetLastError());
   Args a{q, k, v, out, S, T, H, H / KV, D, q_sb, q_ss, q_sh, k_sb, k_st, k_sh,
          v_sb, v_st, v_sh, scale, cap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(dtype, D);
-  if (dtype == 1) {
-    dim3 grid(H, B, (S + kBM - 1) / kBM);
-    if (D <= 64) return launch(flash_bf16_kernel<8>, grid, smem, st, a);
-    if (D <= 128) return launch(flash_bf16_kernel<16>, grid, smem, st, a);
-    return launch(flash_bf16_kernel<32>, grid, smem, st, a);
+  if (variant == 2) {
+    int* counter = static_cast<int*>(next_item);
+    if (D == 64) return launch_wgmma<64>(a, B, KV, counter, st);
+    if (D == 128) return launch_wgmma<128>(a, B, KV, counter, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
+  const size_t smem = smem_bytes(variant, D);
+  if (variant == 1) {
+    dim3 grid(H, B, (S + kBM - 1) / kBM);
+    if (D <= 64) return launch(flash_mma_kernel<8>, grid, smem, st, a);
+    if (D <= 128) return launch(flash_mma_kernel<16>, grid, smem, st, a);
+    return launch(flash_mma_kernel<32>, grid, smem, st, a);
+  }
+  if (variant == 0) {
     dim3 grid(H, B, (S + kFM - 1) / kFM);
-    return launch(flash_f32_kernel, grid, smem, st, a);
+    return launch(flash_fma_kernel, grid, smem, st, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

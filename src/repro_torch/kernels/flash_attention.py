@@ -1,26 +1,42 @@
 """Tiled online-softmax GQA attention (the prefill core) on the card.
 
-:func:`flash_attention` is the wrapper of the hand-written CUDA kernel
+:func:`flash_attention` is the wrapper of the hand-written CUDA kernels in
 ``csrc/flash_attention.cu`` (built for ``sm_90a``; see that file for the
-design and what bounds it).  It replaces the reference package's Pallas TPU
-kernel ``src/repro/kernels/flash_attention.py::flash_attention``.  Its plain
-PyTorch version is :func:`repro_torch.kernels.ref.flash_attention_plain`,
+design).  They replace the reference package's Pallas TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention``.  Its plain PyTorch
+version is :func:`repro_torch.kernels.ref.flash_attention_plain`,
 re-exported here; :mod:`repro_torch.kernels.ops` picks between the two by
 device.
 
-The wrapper takes CUDA tensors only and launches the kernel or raises: q
-``(B, S, H, D)`` and k/v ``(B, T, KV, D)`` of one dtype (bfloat16 on the
-tensor cores, float32 on the FMA units), read through their strides — the
-last dim contiguous, every stride and base address 16-byte aligned — with
-``H`` a multiple of ``KV`` and ``D`` a multiple of 8 up to 256.  It
-allocates the contiguous ``(B, S, H, D)`` output, launches on the current
-stream, checks the launch, and adds one to :data:`launches`.
+Three kernels compute the same function, and :func:`pick_variant` picks one
+from the dtype and head dim:
+
+* ``"wgmma"``: bfloat16 at D = 64 or 128, the LM prefill path.  Persistent
+  blocks; in each, a TMA ring of K/V tiles filled by a producer warp and
+  two consumer warpgroups running ``wgmma`` with the online softmax in
+  registers, overlapped with the previous tile's P V.  Bound by operations
+  (4 * D flops per attended (query, key) pair, on the tensor cores at 989
+  TFLOP/s bf16 on an H100 SXM); its time beside that bound is in PERF.md.
+* ``"mma"``: bfloat16 at any other D (16, h2o-danube-3-4b's 120, gemma2's
+  256), ``mma.sync`` with synchronous tile loads.
+* ``"fma"``: float32 on the FMA units (tensor cores would round to TF32).
+
+The wrapper takes CUDA tensors only and launches a kernel or raises: q
+``(B, S, H, D)`` and k/v ``(B, T, KV, D)`` of one dtype, read through their
+strides — the last dim contiguous, every stride and base address 16-byte
+aligned (what TMA needs too) — with ``H`` a multiple of ``KV`` and ``D`` a
+multiple of 8 up to 256.  It allocates the contiguous ``(B, S, H, D)``
+output (and, for the wgmma kernel, its work counter, one zeroed int32),
+launches on the current stream, checks the launch, and adds one to
+:data:`launches` and to the variant's entry of :data:`launches_by_variant`.
+There is no fallback: a failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -30,31 +46,64 @@ from .ref import flash_attention_plain  # noqa: F401
 #: the reference TPU kernel this replaces (file:line of its pallas_call)
 REPLACES = "src/repro/kernels/flash_attention.py:102"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels, by the code the C launcher takes
+VARIANTS = {"fma": 0, "mma": 1, "wgmma": 2}
+#: head dims the wgmma kernel is compiled for
+WGMMA_D = (64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 256
 #: grid dims y (batch) and z (query tiles) are at most 65,535
 MAX_GRID_YZ = 65535
 
 #: kernel launches since the last reset (the main-path launch counter)
 launches = 0
+#: the same launches by variant; reset with :data:`launches`
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _fn = None
+
+
+def bind(lib: ctypes.CDLL):
+    """``flash_attention_launch`` of a loaded library, its C types set."""
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+        [ctypes.c_longlong] * 9 + [ctypes.c_float] * 2 + \
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        fn = build.load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-            [ctypes.c_longlong] * 9 + [ctypes.c_float] * 2 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = bind(build.load("flash_attention"))
     return _fn
 
 
-def check_inputs(q, k, v) -> None:
-    """Raise on any input the kernel does not take (device aside)."""
+def pick_variant(dtype: torch.dtype, D: int) -> str:
+    """The kernel that computes attention for ``dtype`` at head dim ``D``."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    return "wgmma" if D in WGMMA_D else "mma"
+
+
+def _check_variant(name: str, dtype: torch.dtype, D: int) -> None:
+    if name not in VARIANTS:
+        raise ValueError(f"flash_attention: variant must be one of "
+                         f"{list(VARIANTS)}, got {name!r}")
+    if (name == "fma") != (dtype == torch.float32):
+        raise ValueError(f"flash_attention: the {name} kernel does not take "
+                         f"{dtype}")
+    if name == "wgmma" and D not in WGMMA_D:
+        raise ValueError(f"flash_attention: the wgmma kernel takes head dims "
+                         f"{WGMMA_D}, got {D}")
+
+
+def check_inputs(q, k, v, variant_name=None) -> None:
+    """Raise on any input the kernel (``variant_name``, or the one
+    :func:`pick_variant` picks) does not take, device aside."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share one of "
                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
@@ -74,6 +123,8 @@ def check_inputs(q, k, v) -> None:
     if D % 8 or not 0 < D <= MAX_D:
         raise ValueError(f"flash_attention: head dim {D} must be a multiple "
                          f"of 8 and at most {MAX_D}")
+    if variant_name is not None:
+        _check_variant(variant_name, q.dtype, D)
     if B > MAX_GRID_YZ or -(-S // 32) > MAX_GRID_YZ:
         raise ValueError(f"flash_attention: batch {B} or {S} query rows "
                          f"exceed the launch grid")
@@ -87,11 +138,43 @@ def check_inputs(q, k, v) -> None:
                              f"strides, got strides {st}")
 
 
+def launch(fn, q, k, v, variant: str, *, causal: bool, window: int,
+           logit_softcap: float):
+    """Launch ``fn`` (a ``flash_attention_launch`` of a built library) as
+    ``variant`` on checked CUDA tensors; returns the new output."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    # the wgmma kernel's work counter, 0 at launch
+    next_item = torch.zeros(1, dtype=torch.int32, device=q.device) \
+        if variant == "wgmma" else None
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 VARIANTS[variant], B, S, T, H, KV, D,
+                 qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                 1.0 / math.sqrt(D), float(logit_softcap), int(bool(causal)),
+                 int(window),
+                 None if next_item is None else next_item.data_ptr(), stream)
+    if err != 0:
+        what = ("a TMA tensor map could not be encoded" if err < 0
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
+                           f"{what}")
+    return out
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    logit_softcap: float = 0.0):
-    """Launch the CUDA kernel; returns ``(B, S, H, D)`` in q's dtype."""
+                    logit_softcap: float = 0.0,
+                    variant: Optional[str] = None):
+    """Launch the CUDA kernel; returns ``(B, S, H, D)`` in q's dtype.
+
+    ``variant`` overrides :func:`pick_variant`'s choice; it exists to time one
+    kernel against another at the same shape on the card (chip_smoke.py),
+    not for users."""
     global launches
-    check_inputs(q, k, v)
+    check_inputs(q, k, v, variant)
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -100,20 +183,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if t.device != device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              f"expected {device}")
-    B, S, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=device)
-    qs, ks, vs = q.stride(), k.stride(), v.stride()
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], B, S, T, H, KV, D,
-                 qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                 1.0 / math.sqrt(D), float(logit_softcap), int(bool(causal)),
-                 int(window), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    chosen = variant or pick_variant(q.dtype, q.shape[3])
+    out = launch(_kernel(), q, k, v, chosen, causal=causal, window=window,
+                 logit_softcap=logit_softcap)
     launches += 1
+    launches_by_variant[chosen] += 1
     return out

@@ -107,5 +107,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Sets every kernel's launch count, and flash_attention's counts by
+    variant (``flash_attention.launches_by_variant``), to 0."""
     for mod in _KERNELS.values():
         mod.launches = 0
+    fak.launches_by_variant.update(dict.fromkeys(fak.VARIANTS, 0))

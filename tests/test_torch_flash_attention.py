@@ -159,3 +159,52 @@ def test_kernel_is_built_from_its_source_and_names_the_tpu_kernel():
     assert "flash_attention" in ops.launch_counts()
     ops.reset_launch_counts()
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "wgmma"),   # chatglm3-6b's prefill
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 120, "mma"),     # h2o-danube-3-4b
+    (torch.bfloat16, 16, "mma"),      # the smoke configs
+    (torch.bfloat16, 256, "mma"),     # gemma2-9b
+    (torch.float32, 128, "fma"),
+    (torch.float32, 120, "fma"),
+])
+def test_variant_rule(dtype, D, want):
+    assert fak.pick_variant(dtype, D) == want
+    # the rule's choice passes the wrapper's checks for that variant
+    q = torch.zeros((1, 8, 4, D), dtype=dtype)
+    kv = torch.zeros((1, 8, 2, D), dtype=dtype)
+    fak.check_inputs(q, kv, kv, want)
+
+
+def test_variant_rule_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no kernel"):
+        fak.pick_variant(torch.float16, 128)
+
+
+def test_launches_by_variant_reset_with_the_other_counters():
+    assert set(fak.launches_by_variant) == {"wgmma", "mma", "fma"}
+    fak.launches = 3
+    fak.launches_by_variant["wgmma"] = 2
+    fak.launches_by_variant["mma"] = 1
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert fak.launches_by_variant == {"wgmma": 0, "mma": 0, "fma": 0}
+
+
+@pytest.mark.parametrize("dtype,D,variant,match", [
+    (torch.bfloat16, 128, "tma", "must be one of"),
+    (torch.bfloat16, 128, "fma", "does not take"),
+    (torch.float32, 128, "wgmma", "does not take"),
+    (torch.float32, 64, "mma", "does not take"),
+    (torch.bfloat16, 120, "wgmma", "head dims"),
+    (torch.bfloat16, 256, "wgmma", "head dims"),
+])
+def test_kernel_wrapper_refuses_a_bad_variant(dtype, D, variant, match):
+    q = torch.zeros((1, 8, 4, D), dtype=dtype)
+    kv = torch.zeros((1, 8, 2, D), dtype=dtype)
+    before = dict(fak.launches_by_variant)
+    with pytest.raises(ValueError, match=match):
+        fak.flash_attention(q, kv, kv, variant=variant)
+    assert fak.launches_by_variant == before

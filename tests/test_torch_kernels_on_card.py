@@ -192,9 +192,7 @@ def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap", [
+FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 128, 128, 4, 4, 64, True, 0, 0.0),
     (2, 256, 256, 8, 2, 64, True, 0, 0.0),
     (1, 256, 256, 4, 1, 128, True, 128, 0.0),
@@ -207,22 +205,59 @@ def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):
     (1, 40, 40, 2, 2, 8, True, 0, 0.0),          # D = 8
     (1, 1100, 1100, 16, 8, 256, True, 512, 50.0),  # gemma2's head shape
     (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),   # chatglm3-6b's prefill
-])
+    # the wgmma kernel's edges: S and T not multiples of its 128-row
+    # tiles, S != T with a softcap, a window without causality, rows that
+    # see no key
+    (1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+    (2, 300, 517, 4, 1, 64, True, 0, 30.0),
+    (1, 640, 640, 8, 8, 128, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 128, False, 8, 0.0),
+]
+
+
+def _flash_inputs(device, dtype, B, S, T, H, KV, D):
+    g = torch.Generator(device=device).manual_seed(S * H + D)
+    return (torch.randn((B, S, H, D), generator=g, device=device).to(dtype),
+            torch.randn((B, T, KV, D), generator=g, device=device).to(dtype),
+            torch.randn((B, T, KV, D), generator=g, device=device).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, tol, B, S,
                                               T, H, KV, D, causal, window,
                                               cap):
     from repro_torch.kernels import flash_attention as fak
-    g = torch.Generator(device=cuda_device).manual_seed(S * H + D)
-    q = torch.randn((B, S, H, D), generator=g, device=cuda_device).to(dtype)
-    k = torch.randn((B, T, KV, D), generator=g, device=cuda_device).to(dtype)
-    v = torch.randn((B, T, KV, D), generator=g, device=cuda_device).to(dtype)
+    q, k, v = _flash_inputs(cuda_device, dtype, B, S, T, H, KV, D)
     kw = dict(causal=causal, window=window, logit_softcap=cap)
     want = ref.flash_attention_plain(q, k, v, **kw)
     before = fak.launches
+    variant = fak.pick_variant(dtype, D)
+    by_variant = fak.launches_by_variant[variant]
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fak.launches == before + 1 and got.dtype == dtype
+    assert fak.launches_by_variant[variant] == by_variant + 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap",
+                         [c for c in FLASH_CASES if c[5] in (64, 128)])
+def test_flash_attention_mma_kernel_where_the_rule_picks_wgmma(
+        cuda_device, B, S, T, H, KV, D, causal, window, cap):
+    """The old bf16 kernel stays right at the head dims the wgmma kernel
+    took over (it is timed against it there)."""
+    from repro_torch.kernels import flash_attention as fak
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, B, S, T, H, KV, D)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    want = ref.flash_attention_plain(q, k, v, **kw)
+    before = fak.launches_by_variant["mma"]
+    got = fak.flash_attention(q, k, v, variant="mma", **kw)
+    torch.cuda.synchronize()
+    assert fak.launches_by_variant["mma"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda_device):
@@ -236,6 +271,26 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device):
     got = fak.flash_attention(q, k, v)
     want = ref.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_wgmma_kernel_reads_strided_views(cuda_device, D):
+    """The wgmma kernel's tensor maps over views: q, k and v sliced out of
+    one fused (B, S, H + 2 KV, D) projection, and a batch that is a
+    strided slice (every other row) of a larger one."""
+    from repro_torch.kernels import flash_attention as fak
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    qkv = torch.randn((4, 333, 8 + 2 + 2, D), generator=g,
+                      device=cuda_device).to(torch.bfloat16)[::2]
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    before = fak.launches_by_variant["wgmma"]
+    got = fak.flash_attention(q, k, v, variant="wgmma")
+    want = ref.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fak.launches_by_variant["wgmma"] == before + 1
+    assert got.is_contiguous() and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
 
