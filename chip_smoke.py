@@ -8,43 +8,66 @@ Run from the root of a checkout with one CUDA card:
 It imports only ``torch``, numpy and the port (``src/repro_torch``), and
 runs, in order (any failure exits non-zero and prints no result):
 
+Kernel times come two ways: single calls between CUDA events (``ms``, the
+median of 30; the wrapper's host work counts), and device time
+(``device_ms``): 100 calls back to back under ``torch.profiler``, the
+device time of the kernel's own launches per call (the median recorded
+launch; ``device_mean_ms`` the mean), with the host's microseconds per
+call over the same window beside it.
+
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
    together), and ptxas's register, shared-memory and spill report of the
-   flash_attention kernels;
+   flash_attention, paged_attention and select_topk kernels;
 2. ``select_topk`` against its plain PyTorch version on the card: the
    conformance corpus (heavy ties, k in {0, 1, n}, ulp-apart non-ties,
-   empty rows) and the main path's shape (8, 32783) with heats from a
-   HeMem epoch; masks must be bitwise equal.  Then CUDA-event times
-   (median of 30 after warm-up) of the kernel, the plain version and a
-   ``torch.topk`` yardstick;
+   empty rows), the tuning shape (8, 32783) with heats from a HeMem epoch
+   and the KV replay's (1, 2048) from a kv-hemem epoch; each case through
+   the rule's kernel (the cluster kernel on both main paths) and both
+   kernels forced, masks bitwise equal and bitwise on a rerun.
+   Then at (8, 32783) device times of the cluster and the block kernel in
+   turns (new, old, old, new), both at (1, 2048), both with k = 0 (no
+   radix pass) and k = n (one), both on cuts of the tuning epoch from
+   1,024 to 32,783 pages at B in {1, 8} (where the cluster kernel starts
+   to win), single-call times, the plain version and a ``torch.topk``
+   yardstick;
 3. the port against its own CPU path on a small input (gups at scale
    0.02): deterministic engines bitwise on migrations, sampled ones within
-   the cross-device float tolerance;
+   the cross-device float tolerance; every select_topk launch (656-page
+   rows) on the block kernel;
 4. ``Study.run`` for each engine on the paper's GUPS deployment (gups
    8GiB-hot at scale 1.0: 32,783 pages, 60 epochs) on ``pmem-large``,
    B = 8, ``crn=True``: bitwise equal to the same run with the plain
    selection, bitwise equal on a rerun, identical rows for identical
-   configs, and 60 kernel launches per planning engine;
+   configs, and 60 kernel launches per planning engine, all on the
+   cluster kernel;
 5. the main path of the tuning loop: ``Study.tune`` (hemem, budget 16,
    batch 8, crn) with the launch counters set to 0 just before and read
-   just after;
+   just after (180 launches, all on the cluster kernel);
 6. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
-   917,504-byte rows); CUDA-event times of the kernel, the plain version
-   and ``index_select`` + ``index_copy_`` at the serving shape;
+   917,504-byte rows); single-call and device times of the kernel, the
+   plain version and ``index_select`` + ``index_copy_`` at the serving
+   shape;
 7. ``paged_attention`` against its plain version (f32 within 1e-5, bf16
-   within 1e-2): G in {1, 16}, lengths 0, partial and full, -1 table
-   entries, the strided layer-0 view; times at the serving shape beside
+   and f16 within 1e-2) and bitwise on a rerun: G in {1, 2, 4, 16, 32},
+   lengths 0, partial and full, -1 table entries, the strided layer-0
+   view; each case through the rule's kernel and, where the rule picks the
+   split kernel, the walk kernel and the split kernel at several split
+   counts; then at the serving shape device times of the split and the
+   walk kernel in turns, the split kernel by split count, both with L2
+   evicted between calls, single-call times, the plain version and
    ``scaled_dot_product_attention`` on the resident K/V gathered into a
-   dense tensor (the gather not timed);
+   dense tensor (the gather not timed); and a long-context shape where
+   the plan splits;
 8. the main path of serving: ``replay`` at chatglm3-6b's KV width (28
    layers, 2 KV heads of 128, 32 query heads, bf16, 64-token pages), 64
    sequence slots of 32 pages, 256 HBM pages, 1,024 steps of
    bursty-diurnal traffic, an engine epoch every 8 steps, with the launch
    counters set to 0 just before and read just after (paged_attention once
-   per decoded step, page_migrate 4 and select_topk 1 per epoch); a rerun
+   per decoded step, all on the split kernel; page_migrate 4 and
+   select_topk 1 per epoch, the latter on the cluster kernel); a rerun
    bitwise equal in residency, migrations and outputs; ``FORCE="plain"``
    bitwise equal in residency and migrations, outputs within 1e-2; decode
    ms per step timed in turns (kernels, plain, plain, kernels); then a
@@ -65,7 +88,8 @@ runs, in order (any failure exits non-zero and prints no result):
     sends to the wgmma kernel also runs the old mma kernel.  Times at
     chatglm3-6b's prefill: the wgmma and the mma kernel in turns (new,
     old, old, new), with achieved TFLOP/s and the share of the bound,
-    beside ``scaled_dot_product_attention`` (causal, GQA);
+    beside ``scaled_dot_product_attention`` (causal, GQA), and the device
+    times of both kernels and SDPA;
 13. the LM main path: ``build_prefill_step`` at chatglm3-6b's full width
     on 4 x 2,048 tokens with the launch counters set to 0 just before and
     read just after (flash_attention exactly once per layer, 28, every
@@ -127,6 +151,61 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_launch_us(prof, names=None):
+    """Device microseconds of each recorded launch of a profile's CUDA
+    kernels whose names contain one of ``names`` (every kernel when None),
+    by kernel name."""
+    import torch
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if names is None or any(n in e.name for n in names):
+            out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return out
+
+
+def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
+    """Device time per call of ``fn()``: ``n`` calls back to back under
+    ``torch.profiler`` (CUDA activity); for each kernel whose name
+    contains one of ``names`` (every kernel when None), the median of its
+    recorded launches times the launches a call makes, summed
+    (``device_ms``), and the same with the mean of its recorded launches
+    (``device_mean_ms``), so a slow tail shows as the gap between the two.
+    Per recorded launch, not the window's sum over ``n``: a window may
+    miss a launch.  ``between()``, if given, runs before
+    each call and is not counted unless its kernels match ``names``.  Also
+    the host's microseconds per call over the same window (the loop's
+    clock, so the wrapper's checks, allocations and launch, and
+    ``between``), and the matched launches recorded per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        if between is not None:
+            between()
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if between is not None:
+                between()
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    launches = kernel_launch_us(prof, names)
+    if not launches:
+        fail(f"the profiler saw no launch of {names}")
+    per_call = [max(1, round(len(t) / n)) for t in launches.values()]
+    us = sum(statistics.median(t) * c
+             for t, c in zip(launches.values(), per_call))
+    mean_us = sum(statistics.mean(t) * c
+                  for t, c in zip(launches.values(), per_call))
+    return {"device_ms": us / 1e3, "device_mean_ms": mean_us / 1e3,
+            "host_us": host_s * 1e6 / n,
+            "kernels_per_call": sum(len(t) for t in launches.values()) / n}
 
 
 def gups_study(engine, device="cuda", scale=SCALE, **opts):
@@ -193,9 +272,9 @@ def corpus(device):
             for name, args in cases]
 
 
-def capture_hemem_epoch():
-    """The select_topk inputs of one HeMem epoch at the main path's shape
-    (the epoch with the most pages to select), taken from a plain run."""
+def capture_select_inputs(run):
+    """The select_topk inputs of the call with the most pages to select
+    while ``run()`` goes through the plain versions."""
     from repro_torch.core import engine_torch
     from repro_torch.kernels import ops
     best = []
@@ -210,35 +289,91 @@ def capture_hemem_epoch():
     ops.FORCE = "plain"
     engine_torch.kernel_ops.select_topk = record
     try:
-        study = gups_study("hemem")
-        study.run(configs=batch_configs("hemem"))
+        run()
     finally:
         engine_torch.kernel_ops.select_topk = orig
         ops.FORCE = None
-    return best[1]
+    args = [a.contiguous() for a in best[1]]
+    return [args[0].bool(), args[1].float(), args[2].bool(), args[3].float(),
+            args[4].float(), args[5].float()]
+
+
+def capture_hemem_epoch():
+    """The select_topk inputs of one HeMem epoch at the main path's shape
+    (the epoch with the most pages to select), taken from a plain run."""
+    return capture_select_inputs(
+        lambda: gups_study("hemem").run(configs=batch_configs("hemem")))
+
+
+def capture_replay_epoch():
+    """The select_topk inputs of one kv-hemem epoch of the KV replay
+    (1 x 2,048 pages; the epoch with the most pages to select of a
+    256-step plain replay)."""
+    return capture_select_inputs(lambda: serving_replay(None, 256))
+
+
+#: the kernels each select_topk variant launches (profiler names)
+TOPK_NAMES = {"cluster": ("select_topk_cluster_kernel",),
+              "block": ("select_topk_kernel(",)}
 
 
 def phase_select_topk(device):
     import torch
     from repro_torch.kernels import ops, ref, select_topk as sk
-    max_err = 0
     cases = corpus(device)
     cases.append(("main path (8, 32783), hemem epoch", capture_hemem_epoch()))
-    for name, args in cases:
-        pm, dm = ops.select_topk(*args)
+    replay_args = capture_replay_epoch()
+    cases.append(("KV replay (1, 2048), kv-hemem epoch", replay_args))
+    # the rule's kernel (through ops) and both kernels forced
+    runs = [("rule", {}), ("block", dict(variant="block")),
+            ("cluster", dict(variant="cluster"))]
+    for name, args in cases:  # each in the kernel's dtypes, contiguous
         rpm, rdm = ref.select_topk_ref(*args)
-        torch.cuda.synchronize()
-        err = max(int((pm != rpm).sum()), int((dm != rdm).sum()))
-        max_err = max(max_err, err)
-        if err:
-            fail(f"select_topk differs from its plain version on {name}")
-    print(f"select_topk: {len(cases)} cases bitwise equal to the plain "
-          f"version", flush=True)
-    args = [a.contiguous() for a in cases[-1][1]]
-    args = [args[0].bool(), args[1].float(), args[2].bool(), args[3].float(),
-            args[4].float(), args[5].float()]
+        for run, kw in runs:
+            pm, dm = ops.select_topk(*args) if not kw else \
+                sk.select_topk(*args, **kw)
+            again = ops.select_topk(*args) if not kw else \
+                sk.select_topk(*args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(pm, rpm) and torch.equal(dm, rdm)):
+                fail(f"select_topk ({run}) differs from its plain version "
+                     f"on {name}")
+            if not (torch.equal(pm, again[0]) and torch.equal(dm, again[1])):
+                fail(f"select_topk ({run}) is not bitwise equal on a rerun "
+                     f"on {name}")
+    print(f"select_topk: {len(cases)} cases x {len(runs)} runs (the rule's "
+          f"kernel, block, cluster) bitwise equal to the plain version and "
+          f"on reruns", flush=True)
+    args = cases[-2][1]
     B, n = args[0].shape
-    kernel_ms = cuda_ms(lambda: sk.select_topk(*args))
+    if sk.pick_variant(B, n) != "cluster" \
+            or sk.pick_variant(*replay_args[0].shape) != "cluster":
+        fail("the rule does not pick the cluster kernel on the main paths")
+    # device time, the new and the old kernel in turns (new, old, old, new)
+    turns = {"cluster": [], "block": []}
+    for name in ("cluster", "block", "block", "cluster"):
+        turns[name].append(device_ms(
+            lambda: sk.select_topk(*args, variant=name), TOPK_NAMES[name]))
+    dev = statistics.mean(t["device_ms"] for t in turns["cluster"])
+    dev_mean = statistics.mean(t["device_mean_ms"] for t in turns["cluster"])
+    block_dev = statistics.mean(t["device_ms"] for t in turns["block"])
+    replay = {name: device_ms(lambda: sk.select_topk(*replay_args,
+                                                     variant=name),
+                              TOPK_NAMES[name])
+              for name in ("cluster", "block")}
+    # what a radix pass costs: k = 0 runs no pass, k = n one where fewer
+    # than n pages are candidates (all are taken after it), the real k four
+    passes = {}
+    for shape, a in (("tune", args), ("replay", replay_args)):
+        for label, k in (("k=0", 0.0), ("k=n", float(a[0].shape[1]))):
+            ka = a[:4] + [torch.full_like(a[4], k), torch.full_like(a[5], k)]
+            for name in ("cluster", "block"):
+                passes[f"{shape} {label} {name}"] = device_ms(
+                    lambda: sk.select_topk(*ka, variant=name),
+                    TOPK_NAMES[name])["device_ms"]
+    crossover = topk_crossover(sk, args)
+    kernel_ms = cuda_ms(lambda: sk.select_topk(*args, variant="cluster"))
+    block_ms = cuda_ms(lambda: sk.select_topk(*args, variant="block"))
     plain_ms = cuda_ms(lambda: ref.select_topk_ref(*args))
     # yardstick: one torch.topk over unique packed (key, -index) words
     vp, vd = ref.pack_keys(*args[:4])
@@ -246,19 +381,62 @@ def phase_select_topk(device):
     packed = torch.cat([vp, vd]) << 17 | (n - idx)[None, :]
     kmax = max(1, int(torch.cat([args[4], args[5]]).max()))
     library_ms = cuda_ms(lambda: torch.topk(packed, kmax, dim=-1))
+    library_dev = device_ms(lambda: torch.topk(packed, kmax, dim=-1), None)
     moved = B * n * (1 + 4 + 1 + 4) + 2 * B * 4 + 2 * B * n
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"select_topk at (B={B}, n={n}): kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({moved} bytes)", flush=True)
-    return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms}
+    out = {"max_abs_err": 0, "kernel_ms": kernel_ms, "device_ms": dev,
+           "device_mean_ms": dev_mean,
+           "host_us": statistics.mean(t["host_us"]
+                                      for t in turns["cluster"]),
+           "variant": "cluster", "old_variant": "block", "old_ms": block_ms,
+           "old_device_ms": block_dev, "turns": turns,
+           "replay_shape_device_ms": {k: v["device_ms"]
+                                      for k, v in replay.items()},
+           "crossover_device_ms": crossover,
+           "pass_ablation_device_ms": passes,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_dev["device_ms"],
+           "bound_ms": bound_ms}
+    print(f"select_topk at (B={B}, n={n}): cluster kernel (C="
+          f"{sk.CLUSTER_SIZE}) device {dev:.5f} ms ({bound_ms / dev:.1%} of "
+          f"the bound; mean of launches {dev_mean:.5f} ms), single call "
+          f"{kernel_ms:.4f} ms; block kernel device {block_dev:.5f} ms, "
+          f"single call {block_ms:.4f} ms; at the KV replay's (1, 2048): "
+          f"{json.dumps({k: v['device_ms'] for k, v in replay.items()})}; "
+          f"plain {plain_ms:.4f} ms, "
+          f"torch.topk {library_ms:.4f} ms (device "
+          f"{library_dev['device_ms']:.5f}), bound {bound_ms:.5f} ms "
+          f"({moved} bytes); turns {json.dumps(turns)}; device ms by "
+          f"passes {json.dumps(passes)}; block vs cluster device ms by "
+          f"(B, n) {json.dumps(crossover)}", flush=True)
+    return out
+
+
+def topk_crossover(sk, args):
+    """Device ms of the block and the cluster kernel on the first B rows
+    and n pages of a tuning epoch (k scaled to n), for B in {1, 8} and n
+    from one block tile (1,024) to the whole row: where the cluster kernel
+    starts to win, the measurement behind ``BLOCK_MAX_N``."""
+    import torch
+    full = args[0].shape[1]
+    out = {}
+    for B in (1, 8):
+        for n in (1024, 2048, 4096, 8192, 16384, full):
+            a = [t[:B, :n].contiguous() for t in args[:4]] + [
+                torch.floor(t[:B] * n / full).contiguous() for t in args[4:]]
+            out[f"({B}, {n})"] = {name: device_ms(
+                lambda: sk.select_topk(*a, variant=name),
+                TOPK_NAMES[name])["device_ms"]
+                for name in ("block", "cluster")}
+    return out
 
 
 def phase_small_reference():
-    """The card against the port's CPU path on a small input."""
+    """The card against the port's CPU path on a small input (656 pages:
+    the planning engines' select_topk takes the block kernel)."""
     import numpy as np
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
     for engine in ("static", "oracle", "hemem", "hmsdk"):
         cfgs = batch_configs(engine)[:4]
         on_card = gups_study(engine, scale=0.02).run(configs=cfgs)
@@ -278,7 +456,12 @@ def phase_small_reference():
                     / max(b.cum_migrations[-1], 1.0)
                 if mig > 0.01 or abs(a.total_s - b.total_s) > 1e-3 * b.total_s:
                     fail(f"{engine}: card and CPU path disagree")
-    print("small input (gups, scale 0.02): card agrees with the CPU path",
+    by_variant = ops.launch_counts_by_variant()["select_topk"]
+    if by_variant["block"] == 0 or by_variant["cluster"] != 0:
+        fail(f"small input: select_topk launches by variant {by_variant}, "
+             f"expected all on block")
+    print(f"small input (gups, scale 0.02): card agrees with the CPU path; "
+          f"select_topk launches by variant {json.dumps(by_variant)}",
           flush=True)
 
 
@@ -293,9 +476,11 @@ def phase_study_run():
         res = study.run(configs=cfgs)
         wall_s = time.perf_counter() - t0
         launches = ops.launch_counts()["select_topk"]
+        by_variant = ops.launch_counts_by_variant()["select_topk"]
         want = EPOCHS if engine in PLANNING else 0
-        if launches != want:
-            fail(f"{engine}: {launches} select_topk launches, expected {want}")
+        if launches != want or by_variant != {"block": 0, "cluster": want}:
+            fail(f"{engine}: {launches} select_topk launches ({by_variant}), "
+                 f"expected {want}, all on the cluster kernel")
         n_pages = study.workload().n_pages
         for r in res:
             if not (r.epoch_wall_ms.shape == (EPOCHS,)
@@ -335,15 +520,19 @@ def phase_tune():
     result = study.tune(budget=16, batch_size=BATCH, seed=0)
     wall_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    by_variant = ops.launch_counts_by_variant()["select_topk"]
     # one default evaluation plus two rounds of 8, each a 60-epoch run
-    if launches["select_topk"] != 3 * EPOCHS:
-        fail(f"Study.tune: {launches} launches, expected {3 * EPOCHS}")
+    if launches["select_topk"] != 3 * EPOCHS \
+            or by_variant != {"block": 0, "cluster": 3 * EPOCHS}:
+        fail(f"Study.tune: {launches} launches ({by_variant}), expected "
+             f"{3 * EPOCHS}, all on the cluster kernel")
     if len(result.history) != 16 or not np.isfinite(result.best_value):
         fail("Study.tune: incomplete or non-finite history")
     print(f"Study.tune hemem: incumbent total_s {result.best_value:.4f}, "
           f"default total_s {result.default_value:.4f}, tuning wall "
-          f"{wall_s:.3f} s", flush=True)
-    return launches
+          f"{wall_s:.3f} s, select_topk launches {json.dumps(by_variant)}",
+          flush=True)
+    return launches, by_variant
 
 
 # ---------------------------------------------------------------------------
@@ -464,17 +653,27 @@ def phase_page_migrate():
     dst, src, d, s = cases[-1][1:]
     dl, sl = d.long(), s.long()
     kernel_ms = cuda_ms(lambda: pmk.page_migrate(dst, src, d, s))
+    dev = device_ms(lambda: pmk.page_migrate(dst, src, d, s),
+                    ("page_migrate_copy", "page_migrate_winner"))
     plain_ms = cuda_ms(lambda: ref.page_migrate_plain(dst, src, d, s))
     library_ms = cuda_ms(lambda: dst.index_copy_(0, dl, src.index_select(0, sl)))
+    library_dev = device_ms(
+        lambda: dst.index_copy_(0, dl, src.index_select(0, sl)), None)
     moved = 2 * d.numel() * dst[0].numel() * dst.element_size()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"page_migrate at the serving shape ({d.numel()} lanes of "
-          f"{dst[0].numel() * dst.element_size()} B): kernel {kernel_ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, index_select+index_copy_ "
-          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} bytes)",
-          flush=True)
-    return {"max_abs_err": 0.0, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms}
+          f"{dst[0].numel() * dst.element_size()} B): kernel device "
+          f"{dev['device_ms']:.5f} ms ({bound_ms / dev['device_ms']:.1%} of "
+          f"the bound), single call {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_select+index_copy_ {library_ms:.4f} ms "
+          f"(device {library_dev['device_ms']:.5f}), bound {bound_ms:.5f} ms "
+          f"({moved} bytes)", flush=True)
+    return {"max_abs_err": 0.0, "kernel_ms": kernel_ms,
+            "device_ms": dev["device_ms"],
+            "device_mean_ms": dev["device_mean_ms"],
+            "host_us": dev["host_us"], "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_dev["device_ms"],
+            "bound_ms": bound_ms}
 
 
 def attention_case(device, dtype, B, H, KV, D, page, ppseq, P, layers, seed):
@@ -540,6 +739,27 @@ def attended_positions(table, lengths, page):
     return ok, ok.sum(1)
 
 
+#: the kernels each paged_attention variant launches (profiler names)
+PAGED_NAMES = {"split": ("paged_attention_split_kernel",
+                         "paged_attention_combine_kernel"),
+               "walk": ("paged_attention_kernel<",)}
+
+
+def paged_runs(pak, args, dtype, G, D, page):
+    """(name, kwargs) runs of one case: the rule's kernel, the walk kernel
+    where it takes the case, and the split kernel at the fewest splits,
+    one more, and 8 where the rule picks it."""
+    runs = [("rule", None)]
+    variant = pak.pick_variant(dtype, G, D, page)
+    if variant == "split":
+        if G * D <= pak.MAX_GROUP_ELEMS:
+            runs.append(("walk", dict(variant="walk")))
+        least = max(1, -(-args[3].shape[1] // pak.MAX_SHARE))
+        runs += [(f"split x{n}", dict(variant="split", splits=n))
+                 for n in sorted({least, least + 1, max(least, 8)})]
+    return runs
+
+
 def phase_paged_attention():
     import torch
     import torch.nn.functional as F
@@ -549,49 +769,101 @@ def phase_paged_attention():
     n = 0
     shapes = [  # B, H, KV, D, page, ppseq, P, layers
         (2, 8, 4, 64, 16, 4, 16, 1), (3, 4, 1, 128, 8, 8, 64, 1),
-        (4, 2, 2, 128, 64, 4, 24, 3), (8, 32, 2, 128, 64, 8, 40, 3)]
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        (4, 2, 2, 128, 64, 4, 24, 3), (8, 32, 2, 128, 64, 8, 40, 3),
+        (3, 64, 2, 128, 32, 40, 90, 2), (5, 4, 4, 64, 32, 6, 30, 1)]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                       (torch.float16, 1e-2)):
         for shape in shapes:
+            _, H, KV, D, page = shape[:5]
             for cap in (0.0, 30.0):
                 args = attention_case("cuda", dtype, *shape, seed=n)
                 want = ref.paged_attention_plain(*args, logit_softcap=cap)
-                got = ops.paged_attention(*args, logit_softcap=cap)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                if dtype == torch.bfloat16:
-                    max_err = max(max_err, err)
-                if not torch.allclose(got.float(), want.float(), atol=tol,
-                                      rtol=tol):
-                    fail(f"paged_attention differs from its plain version "
-                         f"({dtype}, shape {shape}, cap {cap}): {err}")
-                n += 1
+                for run, kw in paged_runs(pak, args, dtype, H // KV, D, page):
+                    def call():
+                        if kw is None:
+                            return ops.paged_attention(*args,
+                                                       logit_softcap=cap)
+                        return pak.paged_attention(*args, logit_softcap=cap,
+                                                   **kw)
+                    got = call()
+                    again = call()
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    if dtype != torch.float32:
+                        max_err = max(max_err, err)
+                    if not torch.allclose(got.float(), want.float(),
+                                          atol=tol, rtol=tol):
+                        fail(f"paged_attention ({run}) differs from its "
+                             f"plain version ({dtype}, shape {shape}, cap "
+                             f"{cap}): {err}")
+                    if not torch.equal(got, again):
+                        fail(f"paged_attention ({run}) is not bitwise equal "
+                             f"on a rerun ({dtype}, shape {shape})")
+                    n += 1
     args = serving_attention_args("cuda")
-    want = ref.paged_attention_plain(*args)
-    got = ops.paged_attention(*args)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    max_err = max(max_err, err)
-    if not torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2):
-        fail(f"paged_attention differs from its plain version at the "
-             f"serving shape: {err}")
-    print(f"paged_attention: {n + 1} cases within tolerance of the plain "
-          f"version (max bf16 abs err {max_err:.3g})", flush=True)
     q, k, v, table, lengths = args
-    kernel_ms = cuda_ms(lambda: pak.paged_attention(q, k, v, table, lengths))
+    B, Hq, D = q.shape
+    P, page, KV = k.shape[:3]
+    if pak.pick_variant(q.dtype, Hq // KV, D, page) != "split":
+        fail("the rule does not pick the split kernel at the serving shape")
+    want = ref.paged_attention_plain(*args)
+    for run, kw in [("rule", None), ("walk", dict(variant="walk"))] + [
+            (f"split x{m}", dict(variant="split", splits=m))
+            for m in (2, 8)]:
+        got = ops.paged_attention(*args) if kw is None else \
+            pak.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.allclose(got.float(), want.float(), atol=1e-2,
+                              rtol=1e-2):
+            fail(f"paged_attention ({run}) differs from its plain version "
+                 f"at the serving shape: {err}")
+        n += 1
+    print(f"paged_attention: {n} runs within tolerance of the plain version "
+          f"(f32 1e-5, bf16 and f16 1e-2; max bf16/f16 abs err "
+          f"{max_err:.3g}) and bitwise equal on reruns", flush=True)
+    splits = pak.split_plan(B, KV, table.shape[1], page,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count, pool_pages=P)
+    # device time, the new and the old kernel in turns (new, old, old, new)
+    turns = {"split": [], "walk": []}
+    for name in ("split", "walk", "walk", "split"):
+        turns[name].append(device_ms(
+            lambda: pak.paged_attention(q, k, v, table, lengths,
+                                        variant=name), PAGED_NAMES[name]))
+    dev = statistics.mean(t["device_ms"] for t in turns["split"])
+    dev_mean = statistics.mean(t["device_mean_ms"] for t in turns["split"])
+    walk_dev = statistics.mean(t["device_ms"] for t in turns["walk"])
+    by_splits = {m: device_ms(
+        lambda: pak.paged_attention(q, k, v, table, lengths, variant="split",
+                                    splits=m),
+        PAGED_NAMES["split"])["device_ms"] for m in (1, 2, 4, 8)}
+    # as the replay finds them: a 64 MB write between calls evicts the
+    # 17 MB of inputs from the 50 MB L2 (the write's own kernel is not
+    # counted)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cold = {name: device_ms(
+        lambda: pak.paged_attention(q, k, v, table, lengths, variant=name),
+        PAGED_NAMES[name], between=scratch.zero_)["device_ms"]
+        for name in ("split", "walk")}
+    del scratch
+    kernel_ms = cuda_ms(lambda: pak.paged_attention(q, k, v, table, lengths,
+                                                    variant="split"))
+    walk_ms = cuda_ms(lambda: pak.paged_attention(q, k, v, table, lengths,
+                                                  variant="walk"))
     plain_ms = cuda_ms(lambda: ref.paged_attention_plain(q, k, v, table,
                                                          lengths))
     # yardstick: SDPA over the resident K/V, gathered (not timed) into a
     # dense (B, H, T, D) tensor padded to the longest row, with a mask
-    B, Hq, D = q.shape
-    page, KV = k.shape[1], k.shape[2]
     ok, per_seq = attended_positions(table, lengths, page)
     T = int(per_seq.max())
     idx = torch.zeros((B, T), dtype=torch.long)
     mask = torch.zeros((B, T), dtype=torch.bool)
     for b in range(B):
-        p = torch.nonzero(ok[b]).flatten()
-        idx[b, :p.numel()] = p
-        mask[b, :p.numel()] = True
+        pos = torch.nonzero(ok[b]).flatten()
+        idx[b, :pos.numel()] = pos
+        mask[b, :pos.numel()] = True
     tbl = table.cpu().long()
     slot = tbl.gather(1, idx // page).clamp(min=0)
     kd = k[slot.to(q.device), (idx % page).to(q.device)]   # (B, T, KV, D)
@@ -602,21 +874,76 @@ def phase_paged_attention():
     qd = q[:, :, None, :]
     am = mask.to(q.device)[:, None, None, :]
     lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=am)[:, :, 0]
-    if not torch.allclose(lib.float(), got.float(), atol=2e-2, rtol=2e-2):
+    if not torch.allclose(lib.float(), want.float(), atol=2e-2, rtol=2e-2):
         fail("the SDPA yardstick does not compute the kernel's function")
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=am))
+    library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=am), None)
     elt = q.element_size()
     moved = 2 * int(per_seq.sum()) * KV * D * elt + 2 * q.numel() * elt
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    long = long_context_attention(pak)
+    out = {"max_abs_err": max_err, "kernel_ms": kernel_ms, "device_ms": dev,
+           "device_mean_ms": dev_mean,
+           "host_us": statistics.mean(t["host_us"] for t in turns["split"]),
+           "variant": "split", "splits": splits, "old_variant": "walk",
+           "old_ms": walk_ms, "old_device_ms": walk_dev, "turns": turns,
+           "device_ms_by_splits": by_splits, "cold_l2_device_ms": cold,
+           "long_context": long, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_device_ms": library_dev["device_ms"],
+           "bound_ms": bound_ms}
     print(f"paged_attention at the serving shape (B={B}, H={Hq}, KV={KV}, "
-          f"D={D}, {int(per_seq.sum())} resident positions): kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on gathered "
-          f"K/V {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({moved} bytes)",
-          flush=True)
-    return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms}
+          f"D={D}, {int(per_seq.sum())} resident positions, {splits} "
+          f"split(s)): split kernel device {dev:.5f} ms "
+          f"({bound_ms / dev:.1%} of the bound), single call "
+          f"{kernel_ms:.4f} ms; walk kernel device {walk_dev:.5f} ms, single "
+          f"call {walk_ms:.4f} ms; split device by splits "
+          f"{json.dumps(by_splits)}; with L2 evicted between calls split "
+          f"{cold['split']:.5f} ms, walk {cold['walk']:.5f} ms; plain "
+          f"{plain_ms:.4f} ms, SDPA on gathered K/V {library_ms:.4f} ms "
+          f"(device {library_dev['device_ms']:.5f}), bound {bound_ms:.5f} ms "
+          f"({moved} bytes); turns {json.dumps(turns)}; long context "
+          f"{json.dumps(long)}", flush=True)
+    return out
+
+
+def long_context_attention(pak):
+    """Few long sequences, where the plan splits: 4 sequences x 64 resident
+    pages of 64 tokens at chatglm3-6b's KV width (q (4, 32, 128) bf16),
+    the plan's split count against 4 and against the walk kernel, device
+    ms, each held to the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    P = 300
+    k = torch.randn((P, 64, 2, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((P, 64, 2, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    q = torch.randn((4, 32, 128), generator=g, device="cuda").to(
+        torch.bfloat16)
+    table = torch.randperm(P, generator=g, device="cuda")[:256].to(
+        torch.int32).reshape(4, 64)
+    lengths = torch.full((4,), 64 * 64 - 5, dtype=torch.int32, device="cuda")
+    plan = pak.split_plan(4, 2, 64, 64, torch.cuda.get_device_properties(0)
+                          .multi_processor_count, pool_pages=P)
+    want = ref.paged_attention_plain(q, k, v, table, lengths)
+    out = {"splits": plan}
+    for name, kw in ((f"split x{plan}", dict(variant="split")),
+                     ("split x4", dict(variant="split", splits=4)),
+                     ("walk", dict(variant="walk"))):
+        got = pak.paged_attention(q, k, v, table, lengths, **kw)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), atol=1e-2,
+                              rtol=1e-2):
+            fail(f"paged_attention ({name}) differs from its plain version "
+                 f"on long contexts")
+        out[name] = device_ms(
+            lambda: pak.paged_attention(q, k, v, table, lengths, **kw),
+            PAGED_NAMES[kw["variant"]])["device_ms"]
+    return out
 
 
 def profile_serving(steps):
@@ -629,9 +956,9 @@ def profile_serving(steps):
         t0 = time.perf_counter()
         serving_replay(None, steps)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    names = {"paged_attention": "paged_attention_kernel",
+    names = {"paged_attention": PAGED_NAMES["split"] + PAGED_NAMES["walk"],
              "page_migrate": ("page_migrate_copy", "page_migrate_winner"),
-             "select_topk": "select_topk_kernel"}
+             "select_topk": TOPK_NAMES["cluster"] + TOPK_NAMES["block"]}
     per = {k: 0.0 for k in names}
     busy_us = 0.0
     launches = 0
@@ -645,14 +972,16 @@ def profile_serving(steps):
         busy_us += us
         launches += e.count
         rows.append((us, e.key[:80], e.count))
-        for k, pat in names.items():
-            pats = pat if isinstance(pat, tuple) else (pat,)
-            if any(p in e.key for p in pats):
+        for k, pats in names.items():
+            if any(pat in e.key for pat in pats):
                 per[k] += us
     rows.sort(reverse=True)
     out = {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
            "device_launches": launches,
            "kernel_ms": {k: v / 1e3 for k, v in per.items()},
+           "kernel_share": {k: v / busy_us if busy_us else 0.0
+                            for k, v in per.items()},
            "top": [{"name": n, "ms": us / 1e3, "count": c}
                    for us, n, c in rows[:6]]}
     print("serving device time (profiled replay): " + json.dumps(out),
@@ -673,8 +1002,17 @@ def phase_serving():
     ops.reset_launch_counts()
     res = serving_replay(None, steps, record=True)
     launches = ops.launch_counts()
+    by_variant = ops.launch_counts_by_variant()
     if launches != want:
         fail(f"serving replay launches {launches}, expected {want}")
+    want_variant = {"paged_attention": {"walk": 0, "split":
+                                        want["paged_attention"]},
+                    "select_topk": {"block": 0, "cluster":
+                                    want["select_topk"]}}
+    for name, counts in want_variant.items():
+        if by_variant[name] != counts:
+            fail(f"serving replay's {name} launches by variant "
+                 f"{by_variant[name]}, expected {counts}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if res["migrations"] <= 0:
         fail("serving replay made no migrations")
@@ -713,13 +1051,21 @@ def phase_serving():
                      ("kernels", "plain", "plain_again", "kernels_again"),
                      turns)),
                  plain_wall_s=plain["wall_s"], peak_gb=peak_gb,
-                 outputs_max_abs_err_vs_plain=err)
+                 outputs_max_abs_err_vs_plain=err,
+                 launches_by_variant={k: by_variant[k] for k in want_variant},
+                 # every page_migrate launch passes one lane per HBM page;
+                 # each migrated page moves its K and V rows (2 lanes)
+                 page_migrate_lanes_per_launch=int(
+                     SERVING["batch"] * SERVING["max_pages"]
+                     * SERVING["hbm_frac"]),
+                 page_migrate_valid_lanes_per_launch=2 * res["migrations"]
+                 / max(1, launches["page_migrate"]))
     print("serving replay (chatglm3-6b KV width, 64 x 32 pages, 256 in "
           "HBM): " + json.dumps(stats), flush=True)
     del res, plain
     torch.cuda.empty_cache()
     profile = profile_serving(SERVING["profile_steps"])
-    return launches, stats, profile
+    return launches, by_variant, stats, profile
 
 
 def phase_serving_small():
@@ -917,6 +1263,11 @@ def phase_flash_attention():
         fail("the SDPA yardstick does not compute the kernel's function")
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
+    dev = {name: device_ms(lambda: fak.flash_attention(q, k, v, variant=name),
+                           (f"flash_{name}_kernel",), n=20)
+           for name in ("wgmma", "mma")}
+    library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), None, n=20)
     flops = 4 * D * attended_pairs(S, T, causal, window) * B * H
     # q, k and v read once, the output (q's shape) written once
     moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -931,8 +1282,16 @@ def phase_flash_attention():
           f"{mma_ms:.4f} ms ({flops / mma_ms / 1e9:.1f} TFLOP/s), turns "
           f"{json.dumps(turns)}, plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-          f"({flops} flops, {moved} bytes)", flush=True)
+          f"({flops} flops, {moved} bytes); device ms: wgmma "
+          f"{dev['wgmma']['device_ms']:.5f}, mma {dev['mma']['device_ms']:.5f}"
+          f", SDPA {library_dev['device_ms']:.5f}", flush=True)
     return {"max_abs_err": max_err, "kernel_ms": kernel_ms,
+            "device_ms": dev["wgmma"]["device_ms"],
+            "device_mean_ms": dev["wgmma"]["device_mean_ms"],
+            "host_us": dev["wgmma"]["host_us"],
+            "old_variant": "mma", "old_ms": mma_ms,
+            "old_device_ms": dev["mma"]["device_ms"],
+            "library_device_ms": library_dev["device_ms"],
             "variant": variant, "mma_ms": mma_ms, "turns_ms": turns,
             "achieved_tflops": tflops, "bound_share": bound_ms / kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1134,19 +1493,21 @@ def main() -> int:
     seconds = build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps(seconds)}", flush=True)
-    # ptxas's registers, shared memory and spills of each flash kernel
-    print("\n".join(line for line in
-                    build.build_log("flash_attention").splitlines()
-                    if line.startswith("ptxas") or "spill" in line
-                    or "arning" in line), flush=True)
+    # ptxas's registers, shared memory and spills of the kernels built
+    # with its report
+    for name in build.KERNEL_FLAGS:
+        print("\n".join(line for line in build.build_log(name).splitlines()
+                        if line.startswith("ptxas info    : Used")
+                        or line.startswith("ptxas info    : Compiling")
+                        or "spill" in line or "arning" in line), flush=True)
 
     topk_timing = phase_select_topk("cuda")
     phase_small_reference()
     phase_study_run()
-    tune_launches = phase_tune()
+    tune_launches, tune_by_variant = phase_tune()
     migrate_timing = phase_page_migrate()
     attention_timing = phase_paged_attention()
-    serving_launches, _, _ = phase_serving()
+    serving_launches, serving_by_variant, _, _ = phase_serving()
     phase_serving_small()
     phase_kv_study()
     phase_serving_tune()
@@ -1161,27 +1522,44 @@ def main() -> int:
     phase_lm_card_vs_cpu()
 
     def row(name, mod, timing, by_path):
-        return {
+        out = {
             "name": name, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": timing["max_abs_err"], "matches_plain": True,
             "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
+            "device_ms": timing["device_ms"],
+            "device_mean_ms": timing["device_mean_ms"],
+            "device_bound_share": timing["bound_ms"] / timing["device_ms"],
+            "host_us_per_call": timing["host_us"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing.get("bound_by", "bytes"),
-            "library_ms": timing["library_ms"]}
+            "library_ms": timing["library_ms"],
+            "library_device_ms": timing["library_device_ms"]}
+        for key in ("variant", "old_variant", "old_ms", "old_device_ms"):
+            if key in timing:
+                out[key] = timing[key]
+        return out
 
+    topk_by_variant = {v: tune_by_variant[v]
+                       + serving_by_variant["select_topk"][v]
+                       for v in tune_by_variant}
     kernels = [
-        row("select_topk", sk, topk_timing,
-            {"tune": tune_launches["select_topk"],
-             "serving": serving_launches["select_topk"]}),
+        dict(row("select_topk", sk, topk_timing,
+                 {"tune": tune_launches["select_topk"],
+                  "serving": serving_launches["select_topk"]}),
+             launches_by_variant=topk_by_variant,
+             cluster_size=sk.CLUSTER_SIZE,
+             replay_shape_device_ms=topk_timing["replay_shape_device_ms"]),
         row("page_migrate", pmk, migrate_timing,
             {"serving": serving_launches["page_migrate"]}),
-        row("paged_attention", pak, attention_timing,
-            {"serving": serving_launches["paged_attention"]}),
+        dict(row("paged_attention", pak, attention_timing,
+                 {"serving": serving_launches["paged_attention"]}),
+             launches_by_variant=serving_by_variant["paged_attention"],
+             splits=attention_timing["splits"],
+             cold_l2_device_ms=attention_timing["cold_l2_device_ms"]),
         dict(row("flash_attention", fak, flash_timing,
                  {"lm_prefill": prefill_launches["flash_attention"]}),
-             variant=flash_timing["variant"],
              mma_ms=flash_timing["mma_ms"],
              achieved_tflops=flash_timing["achieved_tflops"]),
     ]

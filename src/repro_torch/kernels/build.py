@@ -31,10 +31,14 @@ KERNELS = ("select_topk", "page_migrate", "paged_attention",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-#: flags of one kernel on top of NVCC_FLAGS: flash_attention keeps line
-#: info and ptxas's register and spill report (``-Xptxas -v``)
+#: flags of one kernel on top of NVCC_FLAGS: the kernels with tensor-core
+#: or cluster code keep line info and ptxas's register and spill report
+#: (``-Xptxas -v``)
+PTXAS_REPORT = ("-lineinfo", "-Xptxas", "-v")
 KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "flash_attention": ("-lineinfo", "-Xptxas", "-v"),
+    "flash_attention": PTXAS_REPORT,
+    "paged_attention": PTXAS_REPORT,
+    "select_topk": PTXAS_REPORT,
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)

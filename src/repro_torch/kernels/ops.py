@@ -106,9 +106,19 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
+    """Launches by variant of the kernels that have several (select_topk,
+    paged_attention, flash_attention) since the last reset."""
+    return {name: dict(mod.launches_by_variant)
+            for name, mod in _KERNELS.items()
+            if hasattr(mod, "launches_by_variant")}
+
+
 def reset_launch_counts() -> None:
-    """Sets every kernel's launch count, and flash_attention's counts by
-    variant (``flash_attention.launches_by_variant``), to 0."""
+    """Sets every kernel's launch count, and the counts by variant of the
+    kernels that have several (``launches_by_variant``), to 0."""
     for mod in _KERNELS.values():
         mod.launches = 0
-    fak.launches_by_variant.update(dict.fromkeys(fak.VARIANTS, 0))
+        if hasattr(mod, "launches_by_variant"):
+            mod.launches_by_variant.update(
+                dict.fromkeys(mod.launches_by_variant, 0))

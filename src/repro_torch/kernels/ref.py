@@ -18,6 +18,13 @@ key, the strict set taken wholesale, and the boundary tier filled in page
 index order by a 17-step search over descending-index weights.  Keys are
 order-preserving float32 bits held in int64 (this torch build has no
 shifts or comparisons on ``torch.uint32``); every count is an exact integer.
+
+:func:`paged_attention_split_plain` and :func:`select_topk_sliced_plain`
+are plain models of the split and cluster kernels' algorithms (softmax
+partials over even shares of each sequence's resident pages, combined in
+share order; per-slice radix histograms summed, boundary pages numbered by
+slice offsets).  Only the tests use
+them, to check that arithmetic on the CPU; nothing on a main path does.
 """
 
 from __future__ import annotations
@@ -91,6 +98,77 @@ def select_topk_ref(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
     return pm & (kp > 0), dm & (kd > 0)
 
 
+def select_topk_sliced_plain(p_mask, p_heat, d_mask, d_heat, n_promote,
+                             n_demote, slices: int):
+    """The cluster kernel's algorithm on ``slices`` contiguous slices of
+    each row (``ceil(n / slices)`` pages each, the last ones shorter or
+    empty): 4 radix passes of 8-bit digits whose histograms are built per
+    slice and summed, a walk of the summed bins from the top, then the
+    boundary tier numbered by each slice's offset (the boundary pages of
+    the slices before it) plus its own running count.  Same masks as
+    :func:`select_topk_ref`."""
+    if slices < 1:
+        raise ValueError(f"slices must be >= 1, got {slices}")
+    B, n = p_mask.shape
+    dev = p_mask.device
+    width = max(1, -(-n // slices))
+    which = torch.arange(n, device=dev) // width  # slice of each page
+    vp, vd = pack_keys(p_mask, p_heat, d_mask, d_heat)
+
+    def k_of(count):
+        f = torch.floor(count.to(torch.float32))
+        return torch.clamp(f, min=0, max=n).to(torch.int64)
+
+    def cutoff(v, k):
+        prefix = torch.zeros(B, dtype=torch.int64, device=dev)
+        rank = k.clone()
+        for shift in (24, 16, 8, 0):
+            live = rank > 0
+            if not bool(live.any()):
+                break
+            hi = 0 if shift == 24 else (_M32 << (shift + 8)) & _M32
+            match = (v != 0) & ((v & hi) == prefix[:, None]) & live[:, None]
+            bins = torch.where(match, (v >> shift) & 255, 256)
+            hist = torch.zeros((B, slices, 257), dtype=torch.int64,
+                               device=dev)
+            hist.index_put_((torch.arange(B, device=dev)[:, None],
+                             which.expand(B, n), bins),
+                            torch.ones_like(bins), accumulate=True)
+            total = hist[:, :, :256].sum(1)           # the cluster's sums
+            desc = total.flip(-1)                     # bin 255 first
+            incl = desc.cumsum(-1)
+            above = incl - desc
+            found = (above < rank[:, None]) & (rank[:, None] <= incl)
+            j = found.to(torch.int64).argmax(-1)
+            has = found.any(-1)
+            digit = 255 - j
+            over = above.gather(1, j[:, None])[:, 0]
+            # fewer candidates than k: cutoff 0, take every candidate
+            found_p = torch.where(has, prefix | digit << shift, 0)
+            prefix = torch.where(live, found_p, prefix)
+            rank = torch.where(live, torch.where(has, rank - over, 0), rank)
+        return prefix, rank
+
+    def side(v, k):
+        t, take = cutoff(v, k)
+        on = (k > 0)[:, None]
+        strict = on & (v > t[:, None])
+        bound = on & (v == t[:, None]) & (v > 0)
+        # each slice scans its own pages (padded to `width`), then adds
+        # the boundary pages of the slices of lower rank
+        flags = torch.zeros((B, slices * width), dtype=torch.int64,
+                            device=dev)
+        flags[:, :n] = bound.to(torch.int64)
+        flags = flags.reshape(B, slices, width)
+        local = flags.cumsum(-1) - flags
+        per = flags.sum(-1)
+        offset = per.cumsum(1) - per
+        before = (offset[:, :, None] + local).reshape(B, -1)[:, :n]
+        return strict | (bound & (before < take[:, None]))
+
+    return side(vp, k_of(n_promote)), side(vd, k_of(n_demote))
+
+
 def page_migrate_plain(dst, src, dst_ids, src_ids):
     """``dst[dst_ids[i]] = src[src_ids[i]]`` row by row, in place; a lane
     with ``dst_ids[i] < 0`` or ``src_ids[i] < 0`` is a no-op, and of lanes
@@ -143,6 +221,64 @@ def paged_attention_plain(q, k_pages, v_pages, block_table, lengths, *,
     p = torch.where(valid[:, None, None], p, 0.0)
     out = torch.einsum("bkgt,btkd->bkgd", p, vv) \
         / torch.clamp(p.sum(-1)[..., None], min=1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, block_table, lengths,
+                                *, logit_softcap: float = 0.0,
+                                splits: int = 1):
+    """The split kernel's algorithm in float32: each sequence's resident
+    pages (in table order) cut into ``splits`` even shares, share ``s``
+    holding ranks ``[s * n // splits, (s + 1) * n // splits)`` of its ``n``
+    pages; each share's softmax partial ``(m, l, acc)`` (m = -inf and l = 0
+    for an empty share), then the partials combined in share order.  Same
+    function as :func:`paged_attention_plain`."""
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    B, H, D = q.shape
+    _, page, KV, _ = k_pages.shape
+    G = H // KV
+    ppseq = block_table.shape[1]
+    f32 = torch.float32
+    dev = q.device
+    table = block_table.to(torch.int64)
+    idx = torch.clamp(table, min=0)
+    kk = k_pages[idx].reshape(B, ppseq * page, KV, D).to(f32)
+    vv = v_pages[idx].reshape(B, ppseq * page, KV, D).to(f32)
+    qg = q.reshape(B, KV, G, D).to(f32) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kk)
+    if logit_softcap > 0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    length = lengths.to(torch.int64)[:, None]
+    entry = torch.arange(ppseq, device=dev)
+    resident = (table >= 0) & (entry[None, :] * page < length)
+    rank = resident.cumsum(1) - resident.to(torch.int64)
+    n_res = resident.sum(1, keepdim=True)
+    share = torch.zeros_like(rank)
+    for sp in range(1, splits):
+        share = torch.where(rank >= sp * n_res // splits, sp, share)
+    pos = torch.arange(ppseq * page, device=dev)
+    valid = (pos[None, :] < length) & resident[:, pos // page]
+    s = torch.where(valid[:, None, None], s, -torch.inf)
+    share_of = share[:, pos // page]
+    m_all = torch.full((B, KV, G), -torch.inf, dtype=f32, device=dev)
+    parts = []
+    for sp in range(splits):
+        mine = (valid & (share_of == sp))[:, None, None]
+        sc = torch.where(mine, s, -torch.inf)
+        m = sc.amax(-1)
+        p = torch.where(mine, torch.exp(sc - torch.where(
+            torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bkgt,btkd->bkgd", p, vv)))
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros((B, KV, G), dtype=f32, device=dev)
+    acc_all = torch.zeros((B, KV, G, D), dtype=f32, device=dev)
+    for m, l, acc in parts:  # in share order
+        f = torch.where(torch.isfinite(m), torch.exp(m - m_all), 0.0)
+        l_all = l_all + l * f
+        acc_all = acc_all + acc * f[..., None]
+    out = torch.where((l_all > 0)[..., None],
+                      acc_all / torch.clamp(l_all, min=1e-30)[..., None], 0.0)
     return out.reshape(B, H, D).to(q.dtype)
 
 

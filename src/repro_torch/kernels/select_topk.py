@@ -1,23 +1,35 @@
 """Exact top-k page selection (the migration planner's sort) on the card.
 
-:func:`select_topk` is the wrapper of the hand-written CUDA kernel
-``csrc/select_topk.cu`` (built for ``sm_90a``; see that file for the design
-and what bounds it).  It replaces the reference package's Pallas TPU kernel
-``src/repro/kernels/select_topk.py::select_topk``.  Its plain PyTorch
-version is :func:`repro_torch.kernels.ref.select_topk_ref`, re-exported here
-as :func:`select_topk_plain`; :mod:`repro_torch.kernels.ops` picks between
-the two by the device of the tensors.
+:func:`select_topk` is the wrapper of the hand-written CUDA kernels in
+``csrc/select_topk.cu`` (built for ``sm_90a``; see that file for the
+designs and what bounds them).  They replace the reference package's Pallas
+TPU kernel ``src/repro/kernels/select_topk.py::select_topk``.  Its plain
+PyTorch version is :func:`repro_torch.kernels.ref.select_topk_ref`,
+re-exported here as :func:`select_topk_plain`; :mod:`repro_torch.kernels.
+ops` picks between the two by the device of the tensors.
 
-The wrapper takes CUDA tensors only and launches the kernel or raises:
+Two kernels compute the same masks, bitwise, and :func:`pick_variant`
+picks one from the row length:
+
+* ``"cluster"``: rows of more than :data:`BLOCK_MAX_N` pages (the tuning
+  loop's 32,783 and the KV replay's 2,048): one thread-block cluster of
+  :data:`CLUSTER_SIZE` CTAs per row, each holding its slice's keys in
+  shared memory, histograms summed through distributed shared memory.
+* ``"block"``: shorter rows, which one block covers in a single tile: one
+  1024-thread block per row.
+
+The wrapper takes CUDA tensors only and launches a kernel or raises:
 masks bool ``(B, n)``, heats float32 ``(B, n)``, counts float32 ``(B,)``,
 all contiguous on one device, ``n <= 65535``.  It allocates the two bool
 output masks, launches on the current stream, checks the launch, and adds
-one to :data:`launches`.
+one to :data:`launches` and to the variant's entry of
+:data:`launches_by_variant`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,22 +41,48 @@ REPLACES = "src/repro/kernels/select_topk.py:133"
 SOURCE = "src/repro_torch/kernels/csrc/select_topk.cu"
 #: page ceiling: the boundary scan packs two 16-bit counters
 MAX_N = (1 << 16) - 1
+#: the kernels of csrc/select_topk.cu
+VARIANTS = ("block", "cluster")
+#: longest row the rule gives the block kernel (one 1024-page tile).  On
+#: an H100 the block kernel is faster up to 2,048 pages and the cluster
+#: kernel from 4,096 (chip_smoke.py's sweep, PERF.md); rows in between,
+#: the KV replay's 2,048 among them, take the cluster kernel for now
+#: (ROADMAP queue 2)
+BLOCK_MAX_N = 1024
+#: CTAs of one cluster (a row) of the cluster kernel, kCluster in the
+#: source: 16 needs the non-portable cluster size allowed; the portable 8
+#: measured about 5% slower at the tuning shape (PERF.md)
+CLUSTER_SIZE = 16
+#: grid dim y (rows of the cluster kernel) is at most 65,535
+MAX_GRID_Y = 65535
 
-#: kernel launches since the last reset (the main-path launch counter)
+#: wrapper calls since the last reset (the main-path launch counter)
 launches = 0
+#: the same calls by variant; reset with :data:`launches`
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("select_topk").select_topk_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+def _kernel(variant: str):
+    fn = _fns.get(variant)
+    if fn is None:
+        lib = build.load("select_topk")
+        fn = lib.select_topk_launch if variant == "block" else \
+            lib.select_topk_cluster_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[variant] = fn
+    return fn
+
+
+def pick_variant(B: int, n: int) -> str:
+    """The kernel that selects over ``B`` rows of ``n`` pages."""
+    if B < 0 or not 0 <= n <= MAX_N:
+        raise ValueError(f"select_topk takes rows of at most {MAX_N} pages, "
+                         f"got ({B}, {n})")
+    return "block" if n <= BLOCK_MAX_N else "cluster"
 
 
 def _check(name, t, dtype, shape, device):
@@ -61,11 +99,16 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"select_topk: {name} must be contiguous")
 
 
-def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
-    """Launch the CUDA kernel: ``(promote_mask, demote_mask)`` bool
+def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
+                variant: Optional[str] = None):
+    """Launch a CUDA kernel: ``(promote_mask, demote_mask)`` bool
     ``(B, n)``, the top ``floor(n_promote)`` promote candidates by heat
     descending and the top ``floor(n_demote)`` demote candidates by heat
-    ascending per row, ties by page index ascending."""
+    ascending per row, ties by page index ascending.
+
+    ``variant`` overrides :func:`pick_variant`'s choice; it exists to time
+    one kernel against the other at the same shape on the card
+    (chip_smoke.py), not for users."""
     global launches
     device = p_mask.device
     if device.type != "cuda":
@@ -83,16 +126,23 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
             ("n_promote", n_promote, torch.float32, (B,)),
             ("n_demote", n_demote, torch.float32, (B,))):
         _check(name, t, dtype, shape, device)
+    chosen = variant or pick_variant(B, n)
+    if chosen not in VARIANTS:
+        raise ValueError(f"select_topk: variant must be one of "
+                         f"{list(VARIANTS)}, got {chosen!r}")
+    if chosen == "cluster" and B > MAX_GRID_Y:
+        raise ValueError(f"select_topk: {B} rows exceed the launch grid")
     pm = torch.empty((B, n), dtype=torch.bool, device=device)
     dm = torch.empty((B, n), dtype=torch.bool, device=device)
-    fn = _kernel()
+    fn = _kernel(chosen)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(p_mask.data_ptr(), p_heat.data_ptr(), d_mask.data_ptr(),
                  d_heat.data_ptr(), n_promote.data_ptr(), n_demote.data_ptr(),
                  pm.data_ptr(), dm.data_ptr(), B, n, stream)
     if err != 0:
-        raise RuntimeError(f"select_topk kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"select_topk {chosen} kernel launch failed: CUDA "
+                           f"error {err}")
     launches += 1
+    launches_by_variant[chosen] += 1
     return pm, dm

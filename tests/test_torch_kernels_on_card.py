@@ -69,6 +69,43 @@ def test_select_topk_kernel_rejects_bad_inputs(cuda_device):
                        torch.ones(1, device=cuda_device))
 
 
+@pytest.mark.parametrize("B,n", [(3, 256), (8, 32783), (2, 65535), (1, 1),
+                                 (2, 3), (1, 2048), (4, 7), (2, 15)])  # n < C
+@pytest.mark.parametrize("levels", [0, 3, 255])
+@pytest.mark.parametrize("density", [0.02, 0.6])
+def test_select_topk_cluster_kernel_matches_plain_and_block(
+        cuda_device, B, n, levels, density):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(B * n + levels + 1, B, n, levels, density)]
+    before = dict(sk.launches_by_variant)
+    pm, dm = sk.select_topk(*args, variant="cluster")
+    again = sk.select_topk(*args, variant="cluster")
+    bpm, bdm = sk.select_topk(*args, variant="block")
+    rpm, rdm = ref.select_topk_ref(*args)
+    torch.cuda.synchronize()
+    assert sk.launches_by_variant["cluster"] == before["cluster"] + 2
+    assert sk.launches_by_variant["block"] == before["block"] + 1
+    assert torch.equal(pm, rpm) and torch.equal(dm, rdm)
+    assert torch.equal(pm, bpm) and torch.equal(dm, bdm)
+    assert torch.equal(pm, again[0]) and torch.equal(dm, again[1])
+
+
+def test_select_topk_rule_takes_the_cluster_kernel_on_long_rows(cuda_device):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(11, 8, 32783, 17, 0.3)]
+    ops.reset_launch_counts()
+    pm, dm = ops.select_topk(*args)
+    small = [torch.from_numpy(a).to(cuda_device)
+             for a in _case(12, 3, 512, 17, 0.3)]
+    ops.select_topk(*small)
+    torch.cuda.synchronize()
+    assert sk.launches_by_variant == {"block": 1, "cluster": 1}
+    rpm, rdm = ref.select_topk_ref(*args)
+    assert torch.equal(pm, rpm) and torch.equal(dm, rdm)
+    with pytest.raises(ValueError, match="variant"):
+        sk.select_topk(*args, variant="radix")
+
+
 # ---------------------------------------------------------------------------
 # page_migrate
 # ---------------------------------------------------------------------------
@@ -174,6 +211,103 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, tol, B, H,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     empty = args[4] == 0
     assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+SPLIT_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", SPLIT_DTYPES)
+@pytest.mark.parametrize("B,H,KV,D,page,ppseq,P,layers,splits", [
+    (2, 8, 4, 64, 16, 4, 16, 1, 1),
+    (3, 4, 1, 128, 16, 8, 64, 1, 1),
+    (1, 16, 8, 64, 32, 2, 8, 1, 1),
+    (4, 2, 2, 128, 64, 4, 24, 3, 1),      # G = 1, a layer view
+    (8, 32, 2, 128, 64, 8, 40, 3, 1),     # chatglm3-6b's group, a layer view
+    (2, 8, 2, 64, 16, 40, 40, 1, 2),      # the fewest a share allows
+    (3, 64, 2, 128, 32, 40, 90, 2, 3),    # G = 32 (two m-tiles), by work
+    (3, 16, 1, 64, 16, 64, 200, 1, 4),    # more shares than resident pages
+    (4, 32, 2, 128, 64, 64, 300, 1, 16),  # by SMs, long contexts
+])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_paged_attention_split_kernel_matches_plain_and_walk(
+        cuda_device, dtype, B, H, KV, D, page, ppseq, P, layers, splits, cap):
+    """The split kernel at the split count its plan picks from the shape
+    and pool (each case one edge of the plan on a 132-SM H100), against
+    the plain version and the walk kernel; bitwise on a rerun.  Row 0 has
+    length 0 and row 1 a partial page, so some shares hold no resident
+    page."""
+    from repro_torch.kernels import paged_attention as pak
+    assert pak.split_plan(B, KV, ppseq, page, 132, pool_pages=P) == splits
+    args = _attention_case(cuda_device, dtype, B, H, KV, D, page, ppseq, P,
+                           seed=B * H + D + 1, layers=layers)
+    assert pak.pick_variant(dtype, H // KV, D, page) == "split"
+    want = ref.paged_attention_plain(*args, logit_softcap=cap)
+    walk = pak.paged_attention(*args, logit_softcap=cap, variant="walk")
+    before = pak.launches_by_variant["split"]
+    got = ops.paged_attention(*args, logit_softcap=cap)
+    again = ops.paged_attention(*args, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert pak.launches_by_variant["split"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(got.float(), walk.float(), atol=1e-2,
+                               rtol=1e-2)
+    empty = args[4] == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+def test_paged_attention_split_kernel_refuses_too_few_splits(cuda_device):
+    from repro_torch.kernels import paged_attention as pak
+    args = _attention_case(cuda_device, torch.bfloat16, 2, 8, 2, 64, 16, 40,
+                           90)
+    with pytest.raises(ValueError, match="at least 2 splits"):
+        pak.paged_attention(*args, splits=1)
+    with pytest.raises(ValueError, match="split kernel takes"):
+        pak.paged_attention(*[a.float() if a.is_floating_point() else a
+                              for a in args], variant="split")
+
+
+def test_paged_attention_split_kernel_at_the_serving_shape(cuda_device):
+    """q (64, 32, 128) bf16 over the layer-0 view of a (257, 28, 64, 2,
+    128) pool, 4 resident pages a sequence: the rule's split kernel (one
+    split) against the plain version and the walk kernel, reruns
+    bitwise."""
+    from repro_torch.kernels import paged_attention as pak
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    rng = np.random.default_rng(5)
+    pool_k = torch.randn((257, 28, 64, 2, 128), generator=g,
+                         device=cuda_device).to(torch.bfloat16)
+    pool_v = torch.randn((257, 28, 64, 2, 128), generator=g,
+                         device=cuda_device).to(torch.bfloat16)
+    q = torch.randn((64, 32, 128), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    lengths = rng.integers(256, 2049, 64)
+    table = np.full((64, 32), -1, np.int32)
+    slots = rng.permutation(256)
+    for b in range(64):
+        pages = rng.choice((lengths[b] - 1) // 64 + 1, 4, replace=False)
+        table[b, pages] = slots[4 * b:4 * b + 4]
+    args = (q, pool_k[:, 0], pool_v[:, 0],
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(lengths.astype(np.int32)).to(cuda_device))
+    assert pak.split_plan(64, 2, 32, 64, 132, pool_pages=257) == 1
+    want = ref.paged_attention_plain(*args)
+    walk = pak.paged_attention(*args, variant="walk")
+    ops.reset_launch_counts()
+    got = ops.paged_attention(*args)
+    again = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(got.float(), walk.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert pak.launches_by_variant == {"walk": 0, "split": 2}
+    # the strided view gives what a contiguous copy gives
+    dense = pak.paged_attention(q, pool_k[:, 0].contiguous(),
+                                pool_v[:, 0].contiguous(), *args[3:])
+    assert torch.equal(dense, ops.paged_attention(*args))
 
 
 def test_paged_attention_kernel_rejects_bad_inputs(cuda_device):

@@ -248,3 +248,124 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert pa_kernel.REPLACES.startswith("src/repro/kernels/paged_attention")
     assert pm_kernel.REPLACES.startswith("src/repro/kernels/page_migrate")
     assert ref.page_migrate_plain is pm_kernel.page_migrate_plain
+
+
+# ---------------------------------------------------------------------------
+# the split kernel's algorithm and the variant rule (no card needed)
+# ---------------------------------------------------------------------------
+def _split_case(seed, B, H, KV, D, page, ppseq, P):
+    """Holes in the table, a row of length 0 (row 0), a row whose every
+    entry is -1 (row 1), a row with one resident page at its end (row 2),
+    the rest random."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, D))
+    kp = rng.normal(size=(P, page, KV, D))
+    vp = rng.normal(size=(P, page, KV, D))
+    table = np.stack([rng.choice(P, ppseq, replace=False) for _ in range(B)])
+    table = np.where(rng.uniform(size=table.shape) < 0.4, -1, table)
+    lengths = rng.integers(1, page * ppseq + 1, B)
+    lengths[0] = 0
+    if B > 1:
+        table[1] = -1
+    if B > 2:
+        table[2, :] = -1
+        table[2, ppseq - 1] = 0
+        lengths[2] = page * ppseq
+    return q, kp, vp, table.astype(np.int32), lengths.astype(np.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("B,H,KV,D,page,ppseq,P", [
+    (4, 2, 2, 64, 16, 6, 40),      # G = 1
+    (4, 8, 2, 64, 16, 5, 40),      # G = 4
+    (5, 32, 2, 128, 64, 4, 30),    # G = 16, chatglm3-6b's group
+    (3, 32, 1, 32, 8, 9, 40),      # G = 32 (two m-tiles)
+])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_paged_attention_split_plain_matches_reference(splits, B, H, KV, D,
+                                                       page, ppseq, P, cap):
+    case = _split_case(splits * 100 + H + D, B, H, KV, D, page, ppseq, P)
+    tq, tk, tv, tt, tl = (torch.from_numpy(a) for a in case)
+    got = ref.paged_attention_split_plain(tq.float(), tk.float(), tv.float(),
+                                          tt, tl, logit_softcap=cap,
+                                          splits=splits)
+    want = jref.paged_attention_ref(*(jnp.asarray(a) for a in case),
+                                    logit_softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(got[0], torch.zeros(H, D))      # length 0
+    assert torch.equal(got[1], torch.zeros(H, D))      # no resident page
+
+
+def test_paged_attention_split_plain_more_splits_than_pages():
+    """Splits beyond a sequence's resident pages are empty shares (m =
+    -inf, l = 0) and combine without NaN."""
+    case = _split_case(5, 3, 8, 2, 64, 16, 3, 12)
+    tq, tk, tv, tt, tl = (torch.from_numpy(a).float() if a.dtype != np.int32
+                          else torch.from_numpy(a) for a in case)
+    got = ref.paged_attention_split_plain(tq, tk, tv, tt, tl, splits=7)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref.paged_attention_plain(tq, tk, tv, tt,
+                                                              tl),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,G,D,page,want", [
+    (torch.bfloat16, 16, 128, 64, "split"),    # the serving path
+    (torch.float16, 4, 64, 16, "split"),
+    (torch.bfloat16, 32, 128, 32, "split"),    # two m-tiles
+    (torch.bfloat16, 1, 64, 128, "split"),
+    (torch.float32, 16, 128, 64, "walk"),      # no float32 mma
+    (torch.bfloat16, 16, 120, 64, "walk"),     # D not compiled
+    (torch.bfloat16, 16, 256, 64, "walk"),
+    (torch.bfloat16, 16, 128, 8, "walk"),      # page not a k16 step
+    (torch.float16, 16, 64, 24, "walk"),
+])
+def test_paged_attention_pick_variant(dtype, G, D, page, want):
+    assert pa_kernel.pick_variant(dtype, G, D, page) == want
+
+
+def test_paged_attention_pick_variant_refuses_empty_shapes():
+    for G, D, page in ((0, 128, 64), (16, 0, 64), (16, 128, 0)):
+        with pytest.raises(ValueError, match="no kernel"):
+            pa_kernel.pick_variant(torch.bfloat16, G, D, page)
+
+
+@pytest.mark.parametrize("args,want", [
+    # the serving shape: 64 sequences x 2 KV heads on 132 SMs, 257 pool
+    # pages (about 4 resident a sequence): one split, 128 CTAs
+    ((64, 2, 32, 64, 132, 257), 1),
+    # long contexts on few sequences: 64 resident pages of 256 units each
+    ((4, 2, 64, 64, 132, 300), 16),
+    # the pool caps the resident pages: 2 a sequence, 8 units, no split
+    ((4, 2, 32, 64, 132, 8), 1),
+    # the work caps the splits: 8 pages of 4 units = 32 units, 2 shares
+    ((1, 1, 8, 64, 132, 100), 2),
+    # one CTA per SM already: no split
+    ((132, 1, 32, 64, 132, 10000), 1),
+    # a share holds at most 32 pages
+    ((64, 2, 100, 64, 132, 10), 4),
+    ((64, 2, 33, 16, 132, 4000), 2),
+    # tiny pages: 16-token pages give 1 unit each
+    ((2, 1, 64, 16, 132, 1000), 4),
+    # an empty pool: no page is resident, no split
+    ((8, 2, 16, 64, 132, 0), 1),
+])
+def test_split_plan(args, want):
+    assert pa_kernel.split_plan(*args) == want
+
+
+def test_split_plan_refuses_empty_shapes():
+    for args in ((0, 2, 32, 64, 132, 9), (4, 0, 32, 64, 132, 9),
+                 (4, 2, 0, 64, 132, 9), (4, 2, 32, 0, 132, 9),
+                 (4, 2, 32, 64, 0, 9), (4, 2, 32, 64, 132, -1)):
+        with pytest.raises(ValueError, match="no split plan"):
+            pa_kernel.split_plan(*args)
+
+
+def test_reset_clears_launches_by_variant():
+    pa_kernel.launches_by_variant["split"] += 3
+    ops.reset_launch_counts()
+    assert pa_kernel.launches_by_variant == {"walk": 0, "split": 0}
+    assert ops.launch_counts_by_variant()["paged_attention"] == \
+        {"walk": 0, "split": 0}

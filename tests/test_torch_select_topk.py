@@ -273,3 +273,87 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     args = [torch.from_numpy(np.asarray(a)) for a in _corpus_case(9, 4, 0.4)]
     with pytest.raises(ValueError, match="CUDA"):
         torch_kernel.select_topk(*args)
+
+
+# ---------------------------------------------------------------------------
+# the cluster kernel's algorithm and the variant rule (no card needed)
+# ---------------------------------------------------------------------------
+def _sliced_case(seed, B, n, levels, density):
+    rng = np.random.default_rng(seed)
+    if levels:
+        p_heat = rng.integers(0, levels, size=(B, n)).astype(np.float32)
+        d_heat = rng.integers(0, levels, size=(B, n)).astype(np.float32)
+    else:
+        p_heat = rng.uniform(-1e6, 1e6, size=(B, n)).astype(np.float32)
+        d_heat = rng.uniform(0.0, 1e6, size=(B, n)).astype(np.float32)
+    p_mask = rng.uniform(size=(B, n)) < density
+    d_mask = rng.uniform(size=(B, n)) < density
+    edges = [0, 1, n, int(rng.integers(0, n + 1))]
+    kp = np.array([edges[b % 4] for b in range(B)], np.float32)
+    kd = np.array([edges[(b + 1) % 4] for b in range(B)], np.float32)
+    return p_mask, p_heat, d_mask, d_heat, kp, kd
+
+
+def _assert_sliced_equals_reference(case, slices):
+    pm, dm = torch_ref.select_topk_sliced_plain(
+        *(torch.from_numpy(np.asarray(a)) for a in case), slices=slices)
+    want_p, want_d = (np.asarray(x) for x in jax_ref(*(jnp.asarray(a)
+                                                       for a in case)))
+    np.testing.assert_array_equal(pm.numpy(), want_p)
+    np.testing.assert_array_equal(dm.numpy(), want_d)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 8, 16])
+@pytest.mark.parametrize("n", [1, 5, 15, 256, 1000])   # n < 16, n % slices
+@pytest.mark.parametrize("levels,density", [(0, 0.5), (3, 0.9), (2, 0.05)])
+def test_select_topk_sliced_plain_matches_reference(slices, n, levels,
+                                                    density):
+    _assert_sliced_equals_reference(
+        _sliced_case(n * 31 + slices + levels, 4, n, levels, density), slices)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 8, 16])
+def test_select_topk_sliced_plain_ties_across_slice_boundaries(slices):
+    """One tied tier spanning every slice: the first `take` pages in index
+    order are taken, whichever slices they fall in."""
+    n = 100
+    mask = np.ones((3, n), bool)
+    heat = np.full((3, n), 7.0, np.float32)
+    heat[:, ::9] = 9.0                       # a strict set in every slice
+    k = np.array([0, 1 + 12, n], np.float32)
+    _assert_sliced_equals_reference((mask, heat, mask, heat, k, k), slices)
+    pm, _ = torch_ref.select_topk_sliced_plain(
+        *(torch.from_numpy(a) for a in (mask, heat, mask, heat, k, k)),
+        slices=slices)
+    hot = set(range(0, n, 9))
+    tied = [i for i in range(n) if i not in hot][:13 - len(hot)]
+    assert np.flatnonzero(pm[1].numpy()).tolist() == sorted(hot | set(tied))
+
+
+@pytest.mark.parametrize("B,n,want", [
+    (8, 32783, "cluster"),     # the tuning loop at gups scale 1.0
+    (1, 2048, "cluster"),      # the KV replay's engine epoch (64 x 32 pages)
+    (3, 65535, "cluster"),
+    (2, 1025, "cluster"),
+    (3, 1024, "block"),        # one tile of the block kernel
+    (3, 256, "block"),
+    (1, 1, "block"),
+    (0, 0, "block"),
+])
+def test_select_topk_pick_variant(B, n, want):
+    assert torch_kernel.pick_variant(B, n) == want
+
+
+def test_select_topk_pick_variant_refuses_long_rows():
+    for B, n in ((1, torch_kernel.MAX_N + 1), (-1, 8), (2, -3)):
+        with pytest.raises(ValueError, match="at most"):
+            torch_kernel.pick_variant(B, n)
+
+
+def test_select_topk_variant_counts_reset():
+    torch_kernel.launches_by_variant["cluster"] += 2
+    ops.reset_launch_counts()
+    assert torch_kernel.launches_by_variant == {"block": 0, "cluster": 0}
+    # a cluster's CTA holds its slice's two u32 key rows in shared memory
+    slice_ = -(-torch_kernel.MAX_N // torch_kernel.CLUSTER_SIZE)
+    assert 2 * 4 * slice_ <= 64 * 1024
