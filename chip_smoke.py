@@ -103,7 +103,28 @@ call over the same window beside it.
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
 15. the chatglm3-6b and gemma2-9b smoke configs at S = 512 on the card
     against the port's CPU path;
-16. one JSON line per the kernel table, the card line again, and as the
+16. ``select_topk`` past the old 65,535-page ceiling: both kernels
+    bitwise against the plain version and on a rerun at n in {65,536,
+    100,003, ``MAX_N``}, B in {1, 8}, with ties and k in {0, 1, n}; then
+    ``Study.run`` of hemem on gapbs-bc kron at scale 1.7 (68,004 pages,
+    120 epochs), B = 8, ``crn=True``: bitwise equal to ``FORCE="plain"``,
+    the cluster kernel once per epoch;
+17. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
+    the chatglm3-6b and gemma2-9b smoke configs from the same weights and
+    ``SyntheticLM`` batches, losses and grad norms within ``TRAIN_TOL``,
+    no kernel launched; ``flash_attention`` under autograd on the card
+    raises;
+18. LM training at chatglm3-6b's full width and depth through the
+    launcher's trainer (``--full --batch 4 --seq 512``, AdamW by its rule,
+    no checkpoint written): 6 steps with finite losses and grad norms, the
+    weights moved, no flash launch, the first loss against ``loss_fn``
+    under ``no_grad`` within 1e-3; per step loss, grad norm, ms,
+    tokens/s and peak memory; then 3 Adafactor steps after the AdamW state
+    is freed;
+19. a checkpoint restart on the card at the smoke config: 20 steps
+    straight against 10, a restart and 10, the losses after the restart
+    bitwise equal;
+20. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -314,7 +335,7 @@ def capture_replay_epoch():
 
 #: the kernels each select_topk variant launches (profiler names)
 TOPK_NAMES = {"cluster": ("select_topk_cluster_kernel",),
-              "block": ("select_topk_kernel(",)}
+              "block": ("select_topk_kernel<",)}
 
 
 def phase_select_topk(device):
@@ -1303,6 +1324,20 @@ def lm_cfg():
     return get_config(LM["arch"])
 
 
+def device_rows(prof):
+    """(device us, kernel name, launches) of a profile's CUDA kernels,
+    longest first."""
+    import torch
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, e.key[:80], e.count))
+    return sorted(rows, reverse=True)
+
+
 def profile_prefill(prefill, model, batch):
     """Device time of one profiled prefill and the flash kernel's share."""
     import torch
@@ -1311,19 +1346,10 @@ def profile_prefill(prefill, model, batch):
             as prof:
         prefill(model, batch)
         torch.cuda.synchronize()
-    busy_us = flash_us = 0.0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        busy_us += us
-        rows.append((us, e.key[:80], e.count))
-        if any(f"flash_{v}_kernel" in e.key for v in ("wgmma", "mma", "fma")):
-            flash_us += us
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
+    busy_us = sum(us for us, _, _ in rows)
+    flash_us = sum(us for us, name, _ in rows if any(
+        f"flash_{v}_kernel" in name for v in ("wgmma", "mma", "fma")))
     return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
             "flash_share": flash_us / busy_us if busy_us else 0.0,
             "top": [{"name": n, "ms": us / 1e3, "count": c}
@@ -1470,6 +1496,358 @@ def phase_lm_card_vs_cpu():
           "agrees with the CPU path", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# select_topk past the old 65,535-page ceiling
+# ---------------------------------------------------------------------------
+#: gapbs-bc on kron (78.13 GiB) at scale 1.7: 68,004 pages, 120 epochs
+BIG = dict(workload="gapbs-bc", input="kron", scale=1.7, epochs=120)
+
+
+def long_rows(n, B, seed):
+    """(B, n) select_topk inputs with heavy ties (3 heat levels) and k in
+    {0, 1, n} on the first rows, random below n on the rest."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ph = rng.integers(0, 3, (B, n)).astype(np.float32)
+    dh = rng.integers(0, 3, (B, n)).astype(np.float32)
+    pm = rng.uniform(size=(B, n)) < 0.6
+    dm = rng.uniform(size=(B, n)) < 0.3
+    edges = [0, 1, n]
+    kp = np.array([edges[b] if b < 3 else rng.integers(2, n)
+                   for b in range(B)], np.float32)
+    kd = np.array([edges[(b + 1) % 3] if b < 3 else rng.integers(2, n)
+                   for b in range(B)], np.float32)
+    if B == 1:
+        kp[0], kd[0] = 1, n
+    return pm, ph, dm, dh, kp, kd
+
+
+def phase_select_topk_long():
+    """Both select_topk kernels past 65,535 pages, then Study.run of hemem
+    on gapbs-bc kron at scale 1.7 (the repair of the page ceiling)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ExperimentSpec, SimOptions, Study, WorkloadSpec
+    from repro_torch.kernels import ops, ref, select_topk as sk
+    times = {}
+    for n in (65_536, 100_003, sk.MAX_N):
+        for B in (1, 8):
+            args = [torch.from_numpy(a).cuda()
+                    for a in long_rows(n, B, n + B)]
+            want = ref.select_topk_ref(*args)
+            for variant in sk.VARIANTS:
+                got = sk.select_topk(*args, variant=variant)
+                again = sk.select_topk(*args, variant=variant)
+                torch.cuda.synchronize()
+                for name, other in (("plain", want), ("rerun", again)):
+                    if not (torch.equal(got[0], other[0])
+                            and torch.equal(got[1], other[1])):
+                        fail(f"select_topk {variant} at ({B}, {n}) is not "
+                             f"bitwise equal to its {name}")
+                if B == 8:
+                    times[f"{variant}@{n}"] = cuda_ms(
+                        lambda: sk.select_topk(*args, variant=variant),
+                        reps=10, warmup=2)
+    study = Study(ExperimentSpec(
+        engine="hemem",
+        workload=WorkloadSpec(BIG["workload"], BIG["input"],
+                              scale=BIG["scale"]),
+        machine="pmem-large",
+        options=SimOptions(seed=0, crn=True, device="cuda")))
+    n_pages = study.workload().n_pages
+    if n_pages <= 65_535:
+        fail(f"{BIG} has {n_pages} pages, not past the old ceiling")
+    cfgs = batch_configs("hemem")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = study.run(configs=cfgs)
+    wall_s = time.perf_counter() - t0
+    by_variant = ops.launch_counts_by_variant()["select_topk"]
+    if by_variant != {"block": 0, "cluster": BIG["epochs"]}:
+        fail(f"Study.run past the old ceiling: select_topk launches "
+             f"{by_variant}, expected {BIG['epochs']}, all on the cluster "
+             f"kernel")
+    ops.FORCE = "plain"
+    try:
+        plain = study.run(configs=cfgs)
+    finally:
+        ops.FORCE = None
+    for a, b in zip(res, plain):
+        if not (a.epoch_wall_ms.shape == (BIG["epochs"],)
+                and np.isfinite(a.epoch_wall_ms).all()
+                and np.array_equal(a.epoch_wall_ms, b.epoch_wall_ms)
+                and np.array_equal(a.cum_migrations, b.cum_migrations)):
+            fail("Study.run past the old ceiling: not bitwise equal to the "
+                 "plain selection")
+    stats = {"max_n": sk.MAX_N, "single_call_ms_B8": times,
+             "study": {**BIG, "n_pages": n_pages, "B": BATCH,
+                       "wall_s": wall_s, "launches": by_variant,
+                       "default_total_s": res[0].total_s,
+                       "migrations": int(res[0].cum_migrations[-1])},
+             "card": card_line()}
+    print("select_topk past 65,535 pages (both kernels bitwise at n = "
+          "65,536, 100,003 and MAX_N; Study.run hemem gapbs-bc kron 1.7 "
+          "bitwise vs plain): " + json.dumps(stats), flush=True)
+    return by_variant["cluster"]
+
+
+# ---------------------------------------------------------------------------
+# LM training: chatglm3-6b at full width and depth
+# ---------------------------------------------------------------------------
+#: the training path: chatglm3-6b at full width, 4 x 512 tokens, AdamW
+TRAIN = dict(arch="chatglm3-6b", batch=4, seq=512, steps=6,
+             adafactor_steps=3)
+#: losses and grad norms of the card against the CPU path, bf16 smoke
+#: configs (``LM_LOGIT_TOL``'s bar)
+TRAIN_TOL = 3e-2
+
+
+def phase_train_card_vs_cpu():
+    """2 train steps (AdamW, n_micro 1 and 2) of the chatglm3-6b and
+    gemma2-9b smoke configs on the card and on the CPU from the same
+    weights and batches; then flash_attention under autograd must raise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train.step import TrainState, build_train_step, to_device
+    worst = 0.0
+    ops.reset_launch_counts()
+    for arch in ("chatglm3-6b", "gemma2-9b"):
+        cfg = get_config(arch, smoke=True)
+        data = SyntheticLM(cfg.vocab, 128, 4, seed=0)
+        for n_micro in (1, 2):
+            seen = {}
+            for device in ("cpu", "cuda"):
+                model = T.init(0, cfg, device="cpu").to(device)
+                model.requires_grad_(True)
+                opt = AdamW(lr=cosine_schedule(1e-3, 2, 10))
+                state = TrainState(
+                    model, opt.init(dict(model.named_parameters())), 0)
+                step = build_train_step(cfg, opt, n_micro=n_micro,
+                                        use_flash=False)
+                out = []
+                for s in range(2):
+                    state, m = step(state, to_device(data.batch_at(s),
+                                                     device))
+                    out.append((float(m["loss"]), float(m["grad_norm"])))
+                seen[device] = out
+            for (lc, gc), (lg, gg) in zip(seen["cpu"], seen["cuda"]):
+                for a, b in ((lg, lc), (gg, gc)):
+                    if not (abs(a) < float("inf")
+                            and abs(a - b) <= TRAIN_TOL * abs(b)):
+                        fail(f"{arch} smoke train (n_micro {n_micro}): card "
+                             f"{seen['cuda']} vs CPU {seen['cpu']}")
+                    worst = max(worst, abs(a - b) / abs(b))
+    if any(ops.launch_counts().values()):
+        fail(f"training launched kernels: {ops.launch_counts()}")
+    q = torch.randn((1, 512, 4, 64), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 512, 2, 64), device="cuda", dtype=torch.bfloat16)
+    try:
+        ops.flash_attention(q, kv, kv)
+    except NotImplementedError:
+        pass
+    else:
+        fail("flash_attention under autograd on the card did not raise")
+    if ops.launch_counts()["flash_attention"]:
+        fail("flash_attention launched under autograd")
+    print(f"LM training smoke configs (chatglm3-6b, gemma2-9b; n_micro 1, "
+          f"2): card agrees with the CPU path, worst relative difference "
+          f"{worst:.3g}; flash_attention under autograd raises", flush=True)
+
+
+def probes(model):
+    """Small copies of a few weights, to see that a step moved them."""
+    blocks = model.blocks
+    return [t.detach()[:4, :8].clone() if t.dim() == 2 else
+            t.detach()[:8].clone()
+            for t in (model.embed, blocks[0].attn["wq"],
+                      blocks[-1].mlp["w_down"], blocks[0].norm1,
+                      model.norm_f)]
+
+
+#: substrings of cuBLAS's matrix-product kernel names (nvjet: CUDA 12.8's)
+GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma")
+
+
+def train_breakdown(tr):
+    """Two more steps of ``tr`` in their parts: forward and backward,
+    clipping and the optimizer update between CUDA events, then the same
+    under the profiler for device busy time, the matrix products' share
+    and the longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.train.step import to_device
+    model = tr.state.params
+    params = dict(model.named_parameters())
+    batch = to_device(tr.data.batch_at(tr.data_state.step), "cuda")
+
+    def step(ev):
+        ev[0].record()
+        T.loss_fn(model, tr.cfg, batch, use_flash=False).backward()
+        ev[1].record()
+        grads, _ = clip_by_global_norm(
+            {k: p.grad for k, p in params.items()}, 1.0)
+        ev[2].record()
+        tr.optimizer.update(grads, tr.state.opt_state, params)
+        ev[3].record()
+        del grads
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step(ev)
+    out = {"forward_backward_ms": ev[0].elapsed_time(ev[1]),
+           "clip_ms": ev[1].elapsed_time(ev[2]),
+           "update_ms": ev[2].elapsed_time(ev[3])}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        step([torch.cuda.Event(enable_timing=True) for _ in range(4)])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    gemm_ms = sum(us for us, n, _ in rows
+                  if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
+    out.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "profiled_idle_share": 1 - busy_ms / wall_ms,
+                "gemm_ms": gemm_ms, "kernels": sum(c for _, _, c in rows),
+                "top": [{"name": n, "ms": us / 1e3, "count": c}
+                        for us, n, c in rows[:8]]})
+    return out
+
+
+def train_full(optimizer, steps, workdir):
+    """The launcher's trainer for chatglm3-6b at full width on the card:
+    ``steps`` steps, no flash launch, the parameters moved, the first loss
+    against ``loss_fn`` under ``no_grad``; per-step ms, tokens/s and the
+    peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import to_device
+    argv = ["--arch", TRAIN["arch"], "--full", "--steps", str(steps),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--device", "cuda", "--workdir", workdir]
+    if optimizer:
+        argv += ["--optimizer", optimizer]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = launcher.make_trainer(argv)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    try:
+        if tr.ckpt_every <= steps:
+            fail(f"the launcher would checkpoint every {tr.ckpt_every} steps")
+        cfg = tr.cfg
+        n_params = sum(p.numel() for p in tr.state.params.parameters())
+        with torch.no_grad():
+            want = float(T.loss_fn(tr.state.params, cfg, to_device(
+                tr.data.batch_at(0), "cuda"), use_flash=False))
+        before = probes(tr.state.params)
+        ops.reset_launch_counts()
+        out = tr.run(log_every=1)
+        launches = ops.launch_counts()
+        if any(launches.values()):
+            fail(f"training at full width launched kernels: {launches}")
+        ms = [m["dt"] * 1e3 for m in out["metrics"]]
+        losses = [m["loss"] for m in out["metrics"]]
+        norms = [m["grad_norm"] for m in out["metrics"]]
+        if out["final_step"] != steps or len(ms) != steps:
+            fail(f"full-width training ran {out['final_step']} steps")
+        if not all(abs(v) < float("inf") for v in losses + norms):
+            fail(f"non-finite loss or grad norm: {losses} {norms}")
+        if abs(losses[0] - want) > 1e-3 * abs(want):
+            fail(f"first step's loss {losses[0]} vs loss_fn {want}")
+        after = probes(tr.state.params)
+        moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+        if not all(moved):
+            fail(f"a step left weights unchanged: {moved}")
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        steady = statistics.median(ms[1:])
+        stats = {"optimizer": type(tr.optimizer).__name__,
+                 "params": n_params, "batch": TRAIN["batch"],
+                 "seq": TRAIN["seq"], "layers": cfg.n_layers,
+                 "remat": cfg.remat, "init_s": init_s,
+                 "loss": losses, "grad_norm": norms, "ms": ms,
+                 "first_step_ms": ms[0], "ms_per_step": steady,
+                 "tokens_per_s": tokens / steady * 1e3,
+                 "tokens_per_s_by_step": [tokens / t * 1e3 for t in ms],
+                 "loss_fn_no_grad": want,
+                 "first_loss_rel_err": abs(losses[0] - want) / abs(want),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "flash_launches": launches["flash_attention"],
+                 "card": card_line()}
+        stats["breakdown"] = train_breakdown(tr)   # after the checks
+        for m in out["metrics"]:
+            print(f"  step {m['step']}: loss {m['loss']:.6f}  grad norm "
+                  f"{m['grad_norm']:.6f}  {m['dt'] * 1e3:.2f} ms  "
+                  f"{tokens / m['dt']:.1f} tokens/s  peak "
+                  f"{stats['peak_gib']:.2f} GiB  ({stats['card']})",
+                  flush=True)
+        return stats
+    finally:
+        tr.close()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_train_full():
+    """chatglm3-6b at full width and depth: 6 AdamW steps through the
+    launcher's trainer, then 3 Adafactor steps after the AdamW state is
+    freed."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        adamw = train_full(None, TRAIN["steps"], d + "/adamw")
+        print(f"LM training ({TRAIN['arch']} full width, AdamW): "
+              + json.dumps(adamw), flush=True)
+        adafactor = train_full("adafactor", TRAIN["adafactor_steps"],
+                               d + "/adafactor")
+        print(f"LM training ({TRAIN['arch']} full width, Adafactor): "
+              + json.dumps(adafactor), flush=True)
+    return adamw, adafactor
+
+
+def phase_train_restart():
+    """At the smoke config on the card: 20 steps straight against 10
+    steps, a restart from the checkpoint, and 10 more; the losses after
+    the restart must be bitwise equal."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import Trainer
+    cfg = get_config(TRAIN["arch"], smoke=True)
+    kw = dict(device="cuda", global_batch=4, seq_len=64, total_steps=20,
+              ckpt_every=10, lr=1e-3)
+    with tempfile.TemporaryDirectory() as d:
+        straight = Trainer(cfg, d + "/a", **kw)
+        ref = {m["step"]: m["loss"]
+               for m in straight.run(log_every=1)["metrics"]}
+        straight.close()
+        first = Trainer(cfg, d + "/b", **kw)
+        first.run(n_steps=10, log_every=1)
+        first.close()
+        second = Trainer(cfg, d + "/b", **kw)
+        if second.data_state.step != 10:
+            fail(f"restart resumed at step {second.data_state.step}")
+        got = {m["step"]: m["loss"]
+               for m in second.run(log_every=1)["metrics"]}
+        second.close()
+    if sorted(got) != list(range(10, 20)) or \
+            any(got[s] != ref[s] for s in got):
+        fail(f"losses after the restart differ: {got} vs {ref}")
+    print(f"checkpoint restart on the card ({cfg.arch} smoke, 10 + 10 "
+          f"steps against 20): losses after the restart bitwise equal "
+          f"({got[10]:.6f} ... {got[19]:.6f})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1520,6 +1898,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_study_launches = phase_select_topk_long()
+    phase_train_card_vs_cpu()
+    phase_train_full()
+    phase_train_restart()
 
     def row(name, mod, timing, by_path):
         out = {
@@ -1544,10 +1928,12 @@ def main() -> int:
     topk_by_variant = {v: tune_by_variant[v]
                        + serving_by_variant["select_topk"][v]
                        for v in tune_by_variant}
+    topk_by_variant["cluster"] += long_study_launches
     kernels = [
         dict(row("select_topk", sk, topk_timing,
                  {"tune": tune_launches["select_topk"],
-                  "serving": serving_launches["select_topk"]}),
+                  "serving": serving_launches["select_topk"],
+                  "study_past_old_ceiling": long_study_launches}),
              launches_by_variant=topk_by_variant,
              cluster_size=sk.CLUSTER_SIZE,
              replay_shape_device_ms=topk_timing["replay_shape_device_ms"]),

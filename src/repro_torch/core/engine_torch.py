@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
+from ..kernels import select_topk as select_topk_kernel
 from .knobs import HEMEM_SPACE
 from .registry import ENGINES, SAMPLERS, register_engine, register_sampler
 
@@ -66,8 +67,9 @@ _GOLDEN = 0x9E3779B9
 _MUL1 = 0x7FEB352D
 _MUL2 = 0x846CA68B
 
-#: page-count ceiling (the selection kernel packs two 16-bit counters)
-MAX_PAGES = (1 << 16) - 1
+#: page-count ceiling: the longest row the selection kernel takes (a
+#: cluster CTA's slice of keys in shared memory; kernels/select_topk.py)
+MAX_PAGES = select_topk_kernel.MAX_N
 
 
 def _f32(x: float) -> float:

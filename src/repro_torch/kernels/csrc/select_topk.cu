@@ -26,17 +26,22 @@
 //     gives t = 0: every candidate is strict.  k == 0 selects nothing.
 //  2. Output: key > t is taken; from the boundary tier (key == t, key > 0)
 //     the first `take` pages in index order are taken, numbered by an
-//     exclusive scan in which both sides share one word by packing the two
-//     0/1 flags into the low and high 16 bits (a row has at most 65535
-//     pages, so neither half overflows).
+//     exclusive scan in which both sides share one word, the promote
+//     side's count in the low and the demote side's in the high half: a
+//     64-bit word (32-bit halves) in the cluster kernel, and in the block
+//     kernel a 32-bit word (16-bit halves) for rows of at most 65,535
+//     pages -- the 64-bit scan costs that kernel registers (it spills at
+//     1024 threads) and about a quarter of its time -- and a 64-bit word
+//     for longer ones.
 //
-// "block" (select_topk_kernel; rows of at most 1,024 pages by the rule).
+// "block" (select_topk_kernel<Word>; rows of at most 1,024 pages by the rule).
 // One block of 1024 threads per row, grid (B,).  Keys are computed on the
 // fly from mask and heat on every pass; the output numbers boundary pages
 // by one block scan per 1024-page tile with a running carry.  What holds
 // it back: only B of the 132 SMs work, and each row is streamed 5 times
-// from L2 (two u32 key rows of 65535 entries, 512 KB, exceed a block's
-// 227 KB of shared memory), with a barrier and a warp walk between passes.
+// from L2 (a block's 227 KB of shared memory holds the two u32 key rows of
+// fewer than 29,000 pages), with a barrier and a warp walk between passes.
+// It keeps nothing per page in shared memory, so it takes any n.
 //
 // "cluster" (select_topk_cluster_kernel; the main paths).  One thread-block
 // cluster of C = kCluster = 16 CTAs (512 threads each) per row, grid (C, B),
@@ -44,8 +49,12 @@
 // the portable 8 measured about 5% slower at the tuning shape.
 //  * CTA r takes the slice [r * s, (r + 1) * s) of the row (s = ceil(n /
 //    C)), in index order, and computes both sides' u32 keys once into its
-//    shared memory (2 x 4 B x s, at most 32 KB at C = 16): the row is read
-//    from device memory once, and every pass runs over shared memory.
+//    shared memory (2 x 4 B x s): the row is read from device memory once,
+//    and every pass runs over shared memory.  The slice is what bounds n:
+//    2 x 4 B x s plus the kernel's static shared memory must fit the 227 KB
+//    (232,448 bytes) a block may use, so n <= C x floor((232,448 - static)
+//    / 8) (MAX_N in kernels/select_topk.py, from ptxas's count of the
+//    static part).
 //  * Each pass, every CTA builds its slice's histograms (warps with no
 //    matching key skip the vote), then adds each non-zero bin into the
 //    sums of every CTA of the cluster through distributed shared memory
@@ -109,6 +118,26 @@ __device__ __forceinline__ int row_k(float count, int n) {
   return f >= static_cast<float>(n) ? n : static_cast<int>(f);
 }
 
+// Boundary-page counts of both sides in one scan word of type Word: the
+// promote side's in the low half, the demote side's in the high half.  A
+// half of a 32-bit word counts up to 65,535 pages, of a 64-bit word any n.
+template <typename Word>
+struct Packed {
+  static constexpr int kHalf = 4 * sizeof(Word);
+  static constexpr Word kLow = (Word(1) << kHalf) - 1;
+  __device__ __forceinline__ static Word both(bool p, bool d) {
+    return Word(p ? 1 : 0) | (Word(d ? 1 : 0) << kHalf);
+  }
+  __device__ __forceinline__ static unsigned promote(Word w) {
+    return static_cast<unsigned>(w & kLow);
+  }
+  __device__ __forceinline__ static unsigned demote(Word w) {
+    return static_cast<unsigned>(w >> kHalf);
+  }
+};
+// longest row whose counts fit the 16-bit halves of a 32-bit word
+constexpr int kNarrowMaxN = 65535;
+
 // One warp walks a 256-bin histogram from the top bin down and finds the
 // digit holding the k-th largest key (k >= 1).  Lane L owns bins
 // 255 - 8L ... 248 - 8L.  Writes the digit and the count of keys in higher
@@ -143,6 +172,7 @@ __device__ void walk_bins(const unsigned* hist, unsigned k, unsigned* out) {
   }
 }
 
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 select_topk_kernel(const uint8_t* __restrict__ p_mask,
                    const float* __restrict__ p_heat,
@@ -152,7 +182,8 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
                    const float* __restrict__ n_demote,
                    uint8_t* __restrict__ p_out, uint8_t* __restrict__ d_out,
                    int n) {
-  using BlockScan = cub::BlockScan<unsigned, kThreads>;
+  using BlockScan = cub::BlockScan<Word, kThreads>;
+  using Pack = Packed<Word>;
   __shared__ typename BlockScan::TempStorage scan_tmp;
   __shared__ unsigned hist[2][kBins];
   __shared__ unsigned walk[2][2];
@@ -233,7 +264,7 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
   // rank 0 when k covers every candidate (then key > 0 takes them all).
 
   // ---- output: strict set + first `take` boundary pages by index -------
-  unsigned carry = 0;  // boundary pages before this tile, packed p | d<<16
+  Word carry = 0;  // boundary pages before this tile, both sides packed
   for (int base = 0; base < n; base += kThreads) {
     const int i = base + tid;
     uint32_t key_p = 0, key_d = 0;
@@ -243,15 +274,14 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
     }
     const bool bound_p = kp > 0 && key_p == prefix_p && key_p > 0;
     const bool bound_d = kd > 0 && key_d == prefix_d && key_d > 0;
-    unsigned flags = (bound_p ? 1u : 0u) | (bound_d ? 1u << 16 : 0u);
-    unsigned before, tile_total;
-    BlockScan(scan_tmp).ExclusiveSum(flags, before, tile_total);
+    Word before, tile_total;
+    BlockScan(scan_tmp).ExclusiveSum(Pack::both(bound_p, bound_d), before, tile_total);
     before += carry;
     if (i < n) {
       const bool take_p = kp > 0 && (key_p > prefix_p ||
-                                     (bound_p && (before & 0xffffu) < rank_p));
+                                     (bound_p && Pack::promote(before) < rank_p));
       const bool take_d = kd > 0 && (key_d > prefix_d ||
-                                     (bound_d && (before >> 16) < rank_d));
+                                     (bound_d && Pack::demote(before) < rank_d));
       p_out[row + i] = take_p ? 1 : 0;
       d_out[row + i] = take_d ? 1 : 0;
     }
@@ -303,12 +333,13 @@ select_topk_cluster_kernel(const uint8_t* __restrict__ p_mask,
                            const float* __restrict__ n_demote,
                            uint8_t* __restrict__ p_out, uint8_t* __restrict__ d_out,
                            int n, int slice) {
-  using BlockScan = cub::BlockScan<unsigned, kClusterThreads>;
+  using BlockScan = cub::BlockScan<uint64_t, kClusterThreads>;
+  using Pack = Packed<uint64_t>;
   __shared__ typename BlockScan::TempStorage scan_tmp;
   __shared__ unsigned hist[2][kBins];       // [side][bin], this slice's, one pass
   __shared__ unsigned summed[2][2][kBins];  // [pass parity][side][bin], the cluster's
   __shared__ unsigned walk[2][2][2];        // [pass parity][side]: digit, count above
-  __shared__ unsigned slice_offset;         // boundary pages of the slices before it
+  __shared__ unsigned slice_offset[2];      // [side]: boundary pages of the slices before it
   extern __shared__ uint32_t keys[];        // promote keys, then demote keys
 
   const int tid = threadIdx.x;
@@ -329,7 +360,7 @@ select_topk_cluster_kernel(const uint8_t* __restrict__ p_mask,
     hist[i / kBins][i % kBins] = 0;
     summed[0][i / kBins][i % kBins] = 0;
   }
-  if (tid == 0) slice_offset = 0;
+  if (tid < 2) slice_offset[tid] = 0;
   const int kp = row_k(n_promote[b], n);
   const int kd = row_k(n_demote[b], n);
   // every CTA has started and cleared what the others add into
@@ -421,40 +452,45 @@ select_topk_cluster_kernel(const uint8_t* __restrict__ p_mask,
   const int per = (m + kClusterThreads - 1) / kClusterThreads;
   const int i0 = tid * per;
   const int i1 = min(m, i0 + per);
-  unsigned mine = 0;  // boundary pages of this thread, packed p | d << 16
+  uint64_t mine = 0;  // boundary pages of this thread, both sides packed
   for (int i = i0; i < i1; ++i) {
     const uint32_t kpi = key_p[i], kdi = key_d[i];
-    mine += (kp > 0 && kpi == prefix_p && kpi > 0 ? 1u : 0u) |
-            (kd > 0 && kdi == prefix_d && kdi > 0 ? 1u << 16 : 0u);
+    mine += Pack::both(kp > 0 && kpi == prefix_p && kpi > 0,
+                       kd > 0 && kdi == prefix_d && kdi > 0);
   }
-  unsigned before, total;
+  uint64_t before, total;
   BlockScan(scan_tmp).ExclusiveSum(mine, before, total);
   // slices of higher rank come later in index order: add this slice's
-  // count to their offsets
-  if (tid > static_cast<int>(rank) && tid < kCluster) red_dsmem_add(&slice_offset, tid, total);
+  // counts to their offsets
+  if (tid > static_cast<int>(rank) && tid < kCluster) {
+    red_dsmem_add(&slice_offset[0], tid, Pack::promote(total));
+    red_dsmem_add(&slice_offset[1], tid, Pack::demote(total));
+  }
   cluster_sync();  // every offset is complete; no CTA touches another's memory after it
-  before += slice_offset;
+  before += static_cast<uint64_t>(slice_offset[0]) | static_cast<uint64_t>(slice_offset[1]) << Pack::kHalf;
   for (int i = i0; i < i1; ++i) {
     const uint32_t kpi = key_p[i], kdi = key_d[i];
     const bool bound_p = kp > 0 && kpi == prefix_p && kpi > 0;
     const bool bound_d = kd > 0 && kdi == prefix_d && kdi > 0;
-    const bool take_p = kp > 0 && (kpi > prefix_p || (bound_p && (before & 0xffffu) < rank_p));
-    const bool take_d = kd > 0 && (kdi > prefix_d || (bound_d && (before >> 16) < rank_d));
+    const bool take_p = kp > 0 && (kpi > prefix_p || (bound_p && Pack::promote(before) < rank_p));
+    const bool take_d = kd > 0 && (kdi > prefix_d || (bound_d && Pack::demote(before) < rank_d));
     p_out[row + lo + i] = take_p ? 1 : 0;
     d_out[row + lo + i] = take_d ? 1 : 0;
-    before += (bound_p ? 1u : 0u) | (bound_d ? 1u << 16 : 0u);
+    before += Pack::both(bound_p, bound_d);
   }
 }
 
 }  // namespace
 
+// The block kernel: grid (B,), 1024 threads, its scan word by n.
 extern "C" int select_topk_launch(const void* p_mask, const void* p_heat,
                                   const void* d_mask, const void* d_heat,
                                   const void* n_promote, const void* n_demote,
                                   void* p_out, void* d_out, int B, int n,
                                   void* stream) {
   if (B > 0 && n > 0) {
-    select_topk_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = n <= kNarrowMaxN ? select_topk_kernel<uint32_t> : select_topk_kernel<uint64_t>;
+    kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(p_mask), static_cast<const float*>(p_heat),
         static_cast<const uint8_t*>(d_mask), static_cast<const float*>(d_heat),
         static_cast<const float*>(n_promote),

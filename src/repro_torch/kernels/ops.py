@@ -93,10 +93,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Tiled online-softmax GQA attention, q ``(B, S, H, D)`` and k/v
     ``(B, T, KV, D)`` -> ``(B, S, H, D)``; see
     :mod:`repro_torch.kernels.flash_attention`.  Tensors are passed as they
-    are (the kernel reads through strides)."""
+    are (the kernel reads through strides).
+
+    The kernel has no backward pass: on a CUDA tensor, a call whose
+    gradient autograd would need raises ``NotImplementedError`` (the
+    reference's Pallas kernel has no gradient either; training runs with
+    ``use_flash=False``).  On the CPU the plain version is differentiable,
+    as the reference's ``flash_attention_ref`` is."""
     if not _use_kernel(q):
         return R.flash_attention_plain(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no gradient on the card: the kernel has no "
+            "backward pass, nor has the reference's Pallas kernel (jax.grad "
+            "through it raises); train with use_flash=False")
     return fak.flash_attention(q, k, v, causal=causal, window=window,
                                logit_softcap=logit_softcap)
 

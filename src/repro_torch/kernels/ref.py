@@ -89,7 +89,7 @@ def select_topk_ref(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
     wd = torch.where(bound_d, iv, 0)
     sp = torch.zeros_like(tp)
     sd = torch.zeros_like(td)
-    for i in range(16, -1, -1):
+    for i in range(max(n, 1).bit_length() - 1, -1, -1):  # weights <= n
         bit = 1 << i
         sp = torch.where(count_ge(wp, sp | bit) >= take_p, sp | bit, sp)
         sd = torch.where(count_ge(wd, sd | bit) >= take_d, sd | bit, sd)

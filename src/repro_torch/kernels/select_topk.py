@@ -20,7 +20,7 @@ picks one from the row length:
 
 The wrapper takes CUDA tensors only and launches a kernel or raises:
 masks bool ``(B, n)``, heats float32 ``(B, n)``, counts float32 ``(B,)``,
-all contiguous on one device, ``n <= 65535``.  It allocates the two bool
+all contiguous on one device, ``n <= MAX_N``.  It allocates the two bool
 output masks, launches on the current stream, checks the launch, and adds
 one to :data:`launches` and to the variant's entry of
 :data:`launches_by_variant`.
@@ -39,8 +39,6 @@ from .ref import select_topk_ref as select_topk_plain  # noqa: F401
 #: the reference TPU kernel this replaces (file:line of its pallas_call)
 REPLACES = "src/repro/kernels/select_topk.py:133"
 SOURCE = "src/repro_torch/kernels/csrc/select_topk.cu"
-#: page ceiling: the boundary scan packs two 16-bit counters
-MAX_N = (1 << 16) - 1
 #: the kernels of csrc/select_topk.cu
 VARIANTS = ("block", "cluster")
 #: longest row the rule gives the block kernel (one 1024-page tile).  On
@@ -55,6 +53,17 @@ BLOCK_MAX_N = 1024
 CLUSTER_SIZE = 16
 #: grid dim y (rows of the cluster kernel) is at most 65,535
 MAX_GRID_Y = 65535
+#: shared memory one block may use on an H100 (the opt-in maximum), bytes
+SMEM_PER_BLOCK = 232_448
+#: the cluster kernel's static shared memory (its 64-bit block scan's
+#: storage, the histograms, their sums and the walk), bytes, as ptxas
+#: reports it for sm_90a (``ptxas info`` in chip_smoke.py's build report)
+CLUSTER_STATIC_SMEM = 10_576
+#: page ceiling: a cluster kernel's CTA holds the two u32 key rows of its
+#: slice, ceil(n / CLUSTER_SIZE) pages, in the shared memory its static
+#: part leaves.  The boundary scan counts in 32-bit halves, so it sets no
+#: lower ceiling; the block kernel takes the same rows
+MAX_N = CLUSTER_SIZE * ((SMEM_PER_BLOCK - CLUSTER_STATIC_SMEM) // 8)
 
 #: wrapper calls since the last reset (the main-path launch counter)
 launches = 0

@@ -8,7 +8,9 @@ GeGLU and GeLU MLPs.  Parameters are mappings of tensors (plain dicts or
 bf16 rounds at the same places.  ``attn_apply`` runs prefill attention
 through :func:`repro_torch.kernels.ops.flash_attention` under the
 reference's threshold (``S >= 512`` and ``S * B <= 2**22``), and the inline
-``_sdpa`` below it.
+``_sdpa`` below it.  The flash kernel has no gradient on the card: training
+passes ``use_flash=False`` and takes ``_sdpa``, as the reference's trainer
+does.
 
 Not ported yet (ROADMAP queue 1): top-k MoE, RG-LRU, mLSTM, sLSTM and
 cross-attention.

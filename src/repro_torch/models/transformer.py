@@ -6,18 +6,23 @@ gemma2-9b, h2o-danube-3-4b and command-r-plus-104b.  The model is an
 ``nn.Module`` (:class:`Model`: the embedding, a ``ModuleList`` of
 :class:`Block` and the final norm); a Python loop over the layers takes the
 place of the reference's ``lax.scan`` over stacked layer groups.  Weights
-serve inference and do not require gradients.
+are made without gradients, for serving; training turns them on with
+``model.requires_grad_(True)`` (``train.step.make_state`` does).  With
+``cfg.remat`` and gradients enabled, each layer is recomputed in the
+backward pass (``torch.utils.checkpoint``), the counterpart of the
+reference's ``jax.checkpoint`` of a layer group.
 
 API (functions over the model, as in the reference):
   init(key, cfg, device)                -> Model   (weights made on device)
   params_from_jax(params_np, cfg)       -> Model   (the reference's weights)
-  forward / hidden_forward              -> logits / hidden   (prefill)
+  forward / hidden_forward              -> logits / hidden   (train, prefill)
+  loss_fn(params, cfg, batch)           -> scalar loss
   decode_init(cfg, batch, max_len)      -> cache   (a list, one per layer)
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
 
 MoE, recurrent (RG-LRU, mLSTM, sLSTM) and cross-attention layers, and the
 encoder-decoder and vision families, raise ``NotImplementedError``
-(ROADMAP queue 1); ``loss_fn`` belongs to the training slice.
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -268,15 +274,26 @@ def logits_from_hidden(params: Model, cfg: ModelConfig, x):
     return logits
 
 
+def _layer_out(p: Block, cfg: ModelConfig, x, positions, use_flash: bool):
+    return _layer(p, cfg, x, positions, use_flash=use_flash)[0]
+
+
 def hidden_forward(params: Model, cfg: ModelConfig, tokens, extra=None,
                    use_flash: bool = True):
     """Embed -> layers -> final norm.  Returns (hidden, aux); aux is 0.0
-    (it carries the MoE balance loss in the reference)."""
+    (it carries the MoE balance loss in the reference).  Under
+    ``cfg.remat`` a layer keeps only its input for the backward pass and
+    runs again there."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=x.device).expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in params.blocks:
-        x, _ = _layer(blk, cfg, x, positions, use_flash=use_flash)
+        if remat:
+            x = checkpoint(_layer_out, blk, cfg, x, positions, use_flash,
+                           use_reentrant=False)
+        else:
+            x = _layer_out(blk, cfg, x, positions, use_flash)
     return _apply_norm(cfg, params.norm_f, x), 0.0
 
 
@@ -284,6 +301,41 @@ def forward(params: Model, cfg: ModelConfig, tokens, extra=None,
             use_flash: bool = True):
     x, aux = hidden_forward(params, cfg, tokens, extra, use_flash)
     return logits_from_hidden(params, cfg, x), aux
+
+
+def _chunk_loss(params: Model, cfg: ModelConfig, x, labels):
+    """Summed negative log-likelihood of the labelled positions of one
+    chunk, and their count.  The label logit is gathered (the reference
+    contracts with a one-hot: the same number, exactly)."""
+    logits = logits_from_hidden(params, cfg, x).to(torch.float32)
+    lbl = torch.clamp(labels, min=0)
+    label_logit = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    ll = label_logit - torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).to(torch.float32)
+    return -(ll * mask).sum(), mask.sum()
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch: Mapping[str, Any],
+            use_flash: bool = True, seq_chunk: int = 2048):
+    """Next-token loss: the mean over positions whose label is not -1,
+    plus 0.01 x aux.  For ``S > seq_chunk`` with ``S % seq_chunk == 0`` the
+    unembed and softmax run chunk by chunk over the sequence, as the
+    reference's scan does.  ``batch`` holds ``tokens`` and ``labels``
+    (B, S) integer tensors on the model's device."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    x, aux = hidden_forward(params, cfg, tokens, batch.get("extra"),
+                            use_flash)
+    if S > seq_chunk and S % seq_chunk == 0:
+        tot = cnt = 0.0
+        for c in range(S // seq_chunk):
+            sl = slice(c * seq_chunk, (c + 1) * seq_chunk)
+            t, n = _chunk_loss(params, cfg, x[:, sl], labels[:, sl])
+            tot, cnt = tot + t, cnt + n
+    else:
+        tot, cnt = _chunk_loss(params, cfg, x, labels)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

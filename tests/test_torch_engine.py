@@ -206,3 +206,29 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         engine_torch.run_epochs(*_args("static"), "sparse", device="cuda")
+
+
+def test_run_epochs_past_the_old_page_ceiling():
+    """gapbs-bc on kron at scale 1.7 (68,004 pages, past the 65,535 the
+    selection kernel once took; the reference runs its numpy loop there):
+    a few epochs of hemem complete on the CPU, CRN rows bitwise equal."""
+    wl = t_make_workload("gapbs-bc", "kron", threads=12, scale=1.7, seed=0)
+    assert wl.n_pages > 65_535
+    sim = [tsim.scale_config("hemem", get_space("hemem").default_config(),
+                             wl.scale)] * 2
+    const = tsim._epoch_consts(wl, "hemem", tsim.get_machine("pmem-large"),
+                               PAGE_BYTES)
+    out = engine_torch.run_epochs(wl, "hemem", sim, const, wl.n_pages // 9,
+                                  PAGE_BYTES, [0, 0], "elementwise",
+                                  crn=True, epoch_stop=4, device="cpu")
+    assert out["wall_ms"].shape == (4, 2)
+    assert np.isfinite(out["wall_ms"]).all()
+    assert out["cum_migrations"][-1, 0] > 0
+    np.testing.assert_array_equal(out["wall_ms"][:, 0], out["wall_ms"][:, 1])
+    # past the new ceiling the loop refuses, as it did past the old one
+    huge = t_make_workload("gapbs-bc", "kron", threads=12, scale=12.0,
+                           seed=0)
+    assert huge.n_pages > engine_torch.MAX_PAGES
+    with pytest.raises(ValueError, match="at most"):
+        engine_torch.run_epochs(huge, "hemem", sim, const, 8, PAGE_BYTES,
+                                [0, 0], "elementwise", device="cpu")

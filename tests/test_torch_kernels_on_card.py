@@ -90,6 +90,23 @@ def test_select_topk_cluster_kernel_matches_plain_and_block(
     assert torch.equal(pm, again[0]) and torch.equal(dm, again[1])
 
 
+@pytest.mark.parametrize("n", [65_536, 100_003, sk.MAX_N])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("levels", [3, 0])
+def test_select_topk_kernels_past_the_old_ceiling(cuda_device, B, n, levels):
+    """Rows longer than the 65,535 pages of the 16-bit boundary counters:
+    both kernels bitwise equal to the plain version and on a rerun."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(n + B + levels, B, n, levels, 0.6)]
+    rpm, rdm = ref.select_topk_ref(*args)
+    for variant in sk.VARIANTS:
+        pm, dm = sk.select_topk(*args, variant=variant)
+        again = sk.select_topk(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(pm, rpm) and torch.equal(dm, rdm), variant
+        assert torch.equal(again[0], pm) and torch.equal(again[1], dm)
+
+
 def test_select_topk_rule_takes_the_cluster_kernel_on_long_rows(cuda_device):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in _case(11, 8, 32783, 17, 0.3)]

@@ -12,6 +12,14 @@ JAX reference.
 * On the CPU the dispatch takes the plain version; the kernel wrapper
   refuses CPU tensors (``tests/test_torch_kernels_on_card.py`` holds the
   kernel against its plain version on a card).
+* Above the old 65,535-page ceiling (rows up to ``MAX_N``): the plain
+  version equals the JAX ``select_topk_ref`` bitwise at 70,000 and 131,072
+  pages, and numpy's stable sort up to ``MAX_N``.  The JAX ref numbers the
+  boundary tier by a search over 17 bits of descending-index weights, so
+  from 131,072 pages it cannot hold page 0's weight (2**17): with page 0 in
+  the boundary tier and one page left to take it takes two.  Its compiled
+  epoch loop refuses rows over 65,535 pages, so no JAX path meets it; the
+  port's search covers ``n``'s bit length, and the edge is held to numpy.
 """
 
 import os
@@ -122,6 +130,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.layers, repro_torch.models.registry\n"
         "import repro_torch.serve, repro_torch.serve.step\n"
         "import repro_torch.launch, repro_torch.launch.serve\n"
+        "import repro_torch.launch.train, repro_torch.optim\n"
+        "import repro_torch.train.step, repro_torch.train.trainer\n"
+        "import repro_torch.data, repro_torch.ckpt\n"
         "from repro_torch.configs import all_arch_ids, get_config\n"
         "[get_config(a) for a in all_arch_ids()]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -334,6 +345,8 @@ def test_select_topk_sliced_plain_ties_across_slice_boundaries(slices):
     (8, 32783, "cluster"),     # the tuning loop at gups scale 1.0
     (1, 2048, "cluster"),      # the KV replay's engine epoch (64 x 32 pages)
     (3, 65535, "cluster"),
+    (8, 65536, "cluster"),     # past the old 16-bit ceiling
+    (1, torch_kernel.MAX_N, "cluster"),
     (2, 1025, "cluster"),
     (3, 1024, "block"),        # one tile of the block kernel
     (3, 256, "block"),
@@ -354,6 +367,67 @@ def test_select_topk_variant_counts_reset():
     torch_kernel.launches_by_variant["cluster"] += 2
     ops.reset_launch_counts()
     assert torch_kernel.launches_by_variant == {"block": 0, "cluster": 0}
-    # a cluster's CTA holds its slice's two u32 key rows in shared memory
+    # a cluster's CTA holds its slice's two u32 key rows in shared memory,
+    # beside the kernel's static part, within what a block may use
     slice_ = -(-torch_kernel.MAX_N // torch_kernel.CLUSTER_SIZE)
-    assert 2 * 4 * slice_ <= 64 * 1024
+    assert 2 * 4 * slice_ + torch_kernel.CLUSTER_STATIC_SMEM \
+        <= torch_kernel.SMEM_PER_BLOCK
+    assert 2 * 4 * (slice_ + 1) + torch_kernel.CLUSTER_STATIC_SMEM \
+        > torch_kernel.SMEM_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# above the old 65,535-page ceiling
+# ---------------------------------------------------------------------------
+def _long_case(seed, B_, n, levels):
+    """Random candidates over ``levels`` heat values (ties when small),
+    k in {0, 1, n} and random in between."""
+    rng = np.random.default_rng(seed)
+    heat = [rng.integers(0, levels, (B_, n)).astype(np.float32)
+            for _ in range(2)]
+    mask = [rng.uniform(size=(B_, n)) < d for d in (0.3, 0.7)]
+    ks = [np.array([0, 1, n] + list(rng.integers(2, n, B_ - 3)),
+                   np.float32)[:B_] for _ in range(2)]
+    return mask[0], heat[0], mask[1], heat[1], ks[0], ks[1]
+
+
+@pytest.mark.parametrize("n", [70_000, 131_072])
+@pytest.mark.parametrize("levels", [3, 4099])
+def test_plain_matches_reference_above_old_ceiling(n, levels):
+    case = _long_case(n + levels, 4, n, levels)
+    pm, dm = _torch_plain(*case)
+    jpm, jdm = _jax(jax_ref)(*case)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jpm))
+    np.testing.assert_array_equal(dm.numpy(), np.asarray(jdm))
+
+
+@pytest.mark.parametrize("n", [131_072, torch_kernel.MAX_N])
+def test_plain_matches_stable_sort_up_to_max_n(n):
+    p_mask, p_heat, d_mask, d_heat, kp, kd = _long_case(n, 4, n, 5)
+    # row 1 (k = 1): every page a tied candidate, so page 0 alone is taken
+    # -- the JAX ref's 17-bit edge
+    p_mask[1], p_heat[1] = True, 2.0
+    pm, dm = _torch_plain(p_mask, p_heat, d_mask, d_heat, kp, kd)
+    for b in range(4):
+        np.testing.assert_array_equal(
+            np.flatnonzero(pm[b].numpy()),
+            np_select(p_mask[b], p_heat[b], kp[b], True))
+        np.testing.assert_array_equal(
+            np.flatnonzero(dm[b].numpy()),
+            np_select(d_mask[b], d_heat[b], kd[b], False))
+    assert np.flatnonzero(pm[1].numpy()).tolist() == [0]
+    # the cluster kernel's algorithm, on its 16 slices, gives the same masks
+    spm, sdm = torch_ref.select_topk_sliced_plain(
+        *(torch.from_numpy(a) for a in (p_mask, p_heat, d_mask, d_heat, kp,
+                                        kd)),
+        slices=torch_kernel.CLUSTER_SIZE)
+    assert torch.equal(spm, pm) and torch.equal(sdm, dm)
+
+
+def test_epoch_loop_supports_rows_past_the_old_ceiling():
+    assert engine_torch.MAX_PAGES == torch_kernel.MAX_N >= 262_143
+    assert engine_torch.supports("hemem", "elementwise", n_pages=65_536)
+    assert engine_torch.supports("hemem", "elementwise",
+                                 n_pages=engine_torch.MAX_PAGES)
+    assert not engine_torch.supports("hemem", "elementwise",
+                                     n_pages=engine_torch.MAX_PAGES + 1)

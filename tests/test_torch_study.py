@@ -90,3 +90,17 @@ def test_unported_surface_raises_not_implemented():
         study.tune(budget=2, executor="async")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         study.tune(budget=2, online=True)
+
+
+def test_workload_scale_past_the_paper_deployment():
+    """The port's spec takes scale > 1 (the reference's stops at 1): gapbs-bc
+    on kron at 1.7 is 68,004 pages, past the old 65,535-page ceiling."""
+    spec = ExperimentSpec(
+        engine="hemem", workload=WorkloadSpec("gapbs-bc", "kron", scale=1.7),
+        options=SimOptions(device="cpu"))
+    assert Study(spec).workload().n_pages == 68_004
+    with pytest.raises(ValueError, match=r"\(0, 1\]"):
+        jax_specs.WorkloadSpec("gapbs-bc", "kron", scale=1.7)
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="positive"):
+            WorkloadSpec("gapbs-bc", "kron", scale=bad)
