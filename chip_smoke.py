@@ -101,8 +101,10 @@ call over the same window beside it.
     kernel launched by decode, and its logits after teacher-forcing the
     prompt against prefill's last-position logits on the same prompt
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
-15. the chatglm3-6b and gemma2-9b smoke configs at S = 512 on the card
-    against the port's CPU path;
+15. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m and kimi-k2-1t-a32b
+    smoke configs at S = 512 on the card against the port's CPU path; the
+    MoE configs' card runs routed as the CPU routed (``Routing``), each
+    router's own choice equal to the CPU's but at near ties;
 16. ``select_topk`` past the old 65,535-page ceiling: both kernels
     bitwise against the plain version and on a rerun at n in {65,536,
     100,003, ``MAX_N``}, B in {1, 8}, with ties and k in {0, 1, n}; then
@@ -110,7 +112,8 @@ call over the same window beside it.
     120 epochs), B = 8, ``crn=True``: bitwise equal to ``FORCE="plain"``,
     the cluster kernel once per epoch;
 17. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
-    the chatglm3-6b and gemma2-9b smoke configs from the same weights and
+    the chatglm3-6b, gemma2-9b and granite-moe-1b-a400m smoke configs (the
+    MoE layers' index ops under autograd) from the same weights and
     ``SyntheticLM`` batches, losses and grad norms within ``TRAIN_TOL``,
     no kernel launched; ``flash_attention`` under autograd on the card
     raises;
@@ -124,7 +127,37 @@ call over the same window beside it.
 19. a checkpoint restart on the card at the smoke config: 20 steps
     straight against 10, a restart and 10, the losses after the restart
     bitwise equal;
-20. one JSON line per the kernel table, the card line again, and as the
+20. ``flash_attention`` at granite-moe-1b-a400m's prefill shape (q (4,
+    2048, 16, 64), k/v (4, 2048, 8, 64), causal; the wgmma kernel at D = 64
+    with group size 2): against the plain version (bf16 2e-2) and bitwise
+    on a rerun, device times of the kernel and SDPA in turns (kernel,
+    SDPA, SDPA, kernel), single-call times, the bound and its share;
+21. the MoE serving path: ``build_prefill_step`` at granite-moe-1b-a400m's
+    full width and depth (24 layers, 32 experts, top-8; random weights from
+    a seed) on 4 x 2,048 tokens, as phase 13: the launch counters set to 0
+    just before and read just after (flash_attention exactly 24 times, all
+    on the wgmma kernel), prefill ms and tokens/s, last logits against
+    ``FORCE="plain"`` within ``LM_LOGIT_TOL``, and a profiled prefill with
+    device busy against the prefill's CUDA-event time, the matrix
+    products' share, the share of the MoE dispatch and combine (sorts,
+    index scatters and gathers) and the share of slots the capacity rule
+    drops;
+22. the launcher at granite's full width (``--arch granite-moe-1b-a400m
+    --full --batch 4 --prompt-len 512 --new-tokens 32``), as phase 14: ms
+    per token, no kernel launched by decode, logits after the prompt
+    against the last-position logits of each sequence prefilled alone
+    (512 x 8 slots: dropless, as decode is) within ``LM_LOGIT_TOL``; the
+    batch prefill's dropped-slot share and distance reported beside;
+23. ``TieredParamStore`` over one granite layer's 32 experts at full width
+    (6.29 MB a host expert in float32, 8 experts in a bf16 pool on the
+    card), the reference test's engine config: 30 steps of ``route`` (the
+    65,536 slots of a 4 x 2,048 prefill at top-8, 8 hot experts among
+    12-31 carrying 90%, from a numpy seed) and ``step_engine(100.0)``;
+    residency, migrations and hits bitwise equal to the same store on the
+    CPU after every step, the hot set resident at the end, ``gather``
+    bitwise equal to the host rows in bf16; ms per step, gather ms for 8
+    ids (half resident) and the promotions' host-to-device GB/s;
+24. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1228,6 +1261,18 @@ def attended_pairs(S, T, causal, window):
     return int(keep.sum())
 
 
+def flash_bound(case, q, k, v):
+    """(bound ms, what bounds it, flops, bytes) of one flash call: 4 D
+    flops per attended (query, key) pair and head, at the bf16 tensor-core
+    rate; q, k and v read once and the output (q's shape) written once."""
+    B, S, T, H, _, D, causal, window, _ = case
+    flops = 4 * D * attended_pairs(S, T, causal, window) * B * H
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    by_ops = flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S
+    bound_ms = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    return bound_ms, "operations" if by_ops else "bytes", flops, moved
+
+
 def phase_flash_attention():
     import torch
     import torch.nn.functional as F
@@ -1262,7 +1307,7 @@ def phase_flash_attention():
     print(f"flash_attention: {n} runs within tolerance of the plain "
           f"version (f32 2e-5, bf16 2e-2; max bf16 abs err {max_err:.3g})",
           flush=True)
-    B, S, T, H, KV, D, causal, window, _ = FLASH_MAIN
+    D = FLASH_MAIN[5]
     q, k, v = flash_inputs(FLASH_MAIN, torch.bfloat16, seed=99)
     variant = fak.pick_variant(q.dtype, D)
     if variant != "wgmma":
@@ -1289,12 +1334,7 @@ def phase_flash_attention():
            for name in ("wgmma", "mma")}
     library_dev = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), None, n=20)
-    flops = 4 * D * attended_pairs(S, T, causal, window) * B * H
-    # q, k and v read once, the output (q's shape) written once
-    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOPS_PER_S \
-        >= moved / HBM_BYTES_PER_S else "bytes"
+    bound_ms, bound_by, flops, moved = flash_bound(FLASH_MAIN, q, k, v)
     tflops = flops / kernel_ms / 1e9
     print(f"flash_attention at chatglm3-6b's prefill (q {tuple(q.shape)}, "
           f"k/v {tuple(k.shape)} bf16, causal): wgmma kernel "
@@ -1319,9 +1359,9 @@ def phase_flash_attention():
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def lm_cfg():
+def lm_cfg(spec=None):
     from repro_torch.configs import get_config
-    return get_config(LM["arch"])
+    return get_config((spec or LM)["arch"])
 
 
 def device_rows(prof):
@@ -1339,7 +1379,9 @@ def device_rows(prof):
 
 
 def profile_prefill(prefill, model, batch):
-    """Device time of one profiled prefill and the flash kernel's share."""
+    """Device time of one profiled prefill, and the shares of the flash
+    kernel, the matrix products and the MoE dispatch
+    and combine's kernels (sorts, index scatters and gathers, scans)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -1348,23 +1390,34 @@ def profile_prefill(prefill, model, batch):
         torch.cuda.synchronize()
     rows = device_rows(prof)
     busy_us = sum(us for us, _, _ in rows)
-    flash_us = sum(us for us, name, _ in rows if any(
-        f"flash_{v}_kernel" in name for v in ("wgmma", "mma", "fma")))
-    return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_us / 1e3,
-            "flash_share": flash_us / busy_us if busy_us else 0.0,
+
+    def share(names):
+        us = sum(t for t, n, _ in rows if any(m in n.lower() for m in names))
+        return us / 1e3, us / busy_us if busy_us else 0.0
+    flash_ms, flash_share = share([f"flash_{v}_kernel"
+                                   for v in ("wgmma", "mma", "fma")])
+    gemm_ms, gemm_share = share(GEMM_NAMES)
+    moe_ms, moe_share = share(MOE_DISPATCH_NAMES)
+    return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_ms,
+            "flash_share": flash_share, "gemm_ms": gemm_ms,
+            "gemm_share": gemm_share,
+            "moe_dispatch_ms": moe_ms, "moe_dispatch_share": moe_share,
+            "kernels": sum(c for _, _, c in rows),
             "top": [{"name": n, "ms": us / 1e3, "count": c}
-                    for us, n, c in rows[:6]]}
+                    for us, n, c in rows[:8]]}
 
 
-def phase_lm_prefill():
-    """chatglm3-6b at full width: build_prefill_step on (4, 2,048)."""
+def phase_lm_prefill(spec=None):
+    """chatglm3-6b (or ``spec``'s arch) at full width: build_prefill_step
+    on (4, 2,048)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
-    cfg = lm_cfg()
+    spec = spec or LM
+    cfg = lm_cfg(spec)
     t0 = time.perf_counter()
     model = T.init(0, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1372,7 +1425,7 @@ def phase_lm_prefill():
     n_params = sum(p.numel() for p in model.parameters())
     weight_gb = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / 1e9
-    B, S = LM["batch"], LM["seq"]
+    B, S = spec["batch"], spec["seq"]
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, (B, S))).cuda()}
@@ -1408,6 +1461,10 @@ def phase_lm_prefill():
         fail(f"prefill logits with the kernel and the plain version differ "
              f"by {err} (relative to the largest logit)")
     prof = profile_prefill(prefill, model, batch)
+    if cfg.moe_experts:
+        with Routing() as routes:
+            prefill(model, batch)
+        prof["moe_dropped_slot_share"] = dropped_share(routes.seen, cfg)
     stats = {"params": n_params, "weights_gb": weight_gb, "init_s": init_s,
              "batch": B, "seq": S, "prefill_ms": prefill_ms,
              "tokens_per_s": B * S / prefill_ms * 1e3,
@@ -1416,84 +1473,211 @@ def phase_lm_prefill():
              "flash_launches": launches["flash_attention"],
              "flash_launches_by_variant": by_variant,
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-             "profile": prof}
+             "profile": prof,
+             # the unprofiled prefill's CUDA-event time is the wall
+             "device_idle_share": 1 - prof["device_busy_ms"] / prefill_ms}
     print(f"LM prefill ({cfg.arch} full width, {cfg.n_layers} layers, "
           f"B={B}, S={S}): " + json.dumps(stats), flush=True)
     return model, launches, stats
 
 
-def phase_lm_decode(model):
+def phase_lm_decode(model, spec=None):
     """The port's launcher at full width, then prefill's last logits on
     the launcher's prompt against the logits after teacher-forcing it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
     from repro_torch.serve.step import build_prefill_step
-    cfg = lm_cfg()
-    argv = ["--arch", cfg.arch, "--full", "--batch", str(LM["batch"]),
-            "--prompt-len", str(LM["prompt_len"]), "--new-tokens",
-            str(LM["new_tokens"])]
+    spec = spec or LM
+    cfg = lm_cfg(spec)
+    argv = ["--arch", cfg.arch, "--full", "--batch", str(spec["batch"]),
+            "--prompt-len", str(spec["prompt_len"]), "--new-tokens",
+            str(spec["new_tokens"])]
     ops.reset_launch_counts()
     res = launcher.main(argv)
     decode_launches = ops.launch_counts()
     if any(decode_launches.values()):
         fail(f"the launcher's decode loop launched kernels: {decode_launches}")
     tokens = res["tokens"]
-    if tokens.shape != (LM["batch"], LM["new_tokens"]) or \
+    if tokens.shape != (spec["batch"], spec["new_tokens"]) or \
             int(tokens.min()) < 0 or int(tokens.max()) >= cfg.padded_vocab:
         fail(f"launcher tokens misshapen or out of range: {tokens.shape}")
     ops.reset_launch_counts()
-    want = build_prefill_step(cfg)(model, {"tokens": res["prompt"]})[:, -1]
+    if cfg.moe_experts:
+        want, moe = moe_prompt_check(model, cfg, res)
+    else:
+        want = build_prefill_step(cfg)(model,
+                                       {"tokens": res["prompt"]})[:, -1]
+        moe = {}
     prefill_launches = ops.launch_counts()["flash_attention"]
     got = res["prompt_logits"]
-    err = float((got.float() - want.float()).abs().max()
-                / want.float().abs().max())
+    err = rel_err(got, want)
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     if not (bool(torch.isfinite(got.float()).all()) and err <= LM_LOGIT_TOL):
         fail(f"decode after teacher forcing and prefill disagree by {err} "
              f"(relative to the largest logit; tolerance {LM_LOGIT_TOL})")
     stats = {"decode_ms_per_token": res["decode_ms_per_token"],
              "prompt_s": res["prompt_s"],
-             "prompt_ms_per_token": res["prompt_s"] / LM["prompt_len"] * 1e3,
+             "prompt_ms_per_token": res["prompt_s"] / spec["prompt_len"]
+             * 1e3,
              "decode_launches": decode_launches,
              "prefill_flash_launches": prefill_launches,
              "prompt_logits_rel_err_vs_prefill": err,
-             "prompt_argmax_agreement": agree}
+             "prompt_argmax_agreement": agree, **moe}
     print(f"LM launcher ({' '.join(argv)}): " + json.dumps(stats), flush=True)
     return stats
 
 
+def rel_err(got, want) -> float:
+    """Largest |difference| over the largest |reference value|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def moe_prompt_check(model, cfg, res):
+    """(prefill's last logits on the launcher's prompt, stats) for a MoE
+    model.  A prefill of the whole batch is not dropless (T * k above
+    4,096 gives each expert C = 1.25 T k / E slots and drops the rest),
+    while decode is, so the two compute different functions: each
+    sequence is prefilled alone (512 x 8 = 4,096 slots: dropless).  The
+    batch prefill's share of dropped slots and its distance from decode
+    are reported beside."""
+    import torch
+    from repro_torch.serve.step import build_prefill_step
+    prompt = res["prompt"]
+    B, P = prompt.shape
+    if P * cfg.moe_top_k > 4096:
+        fail(f"a {P}-token prompt is not dropless at top-{cfg.moe_top_k}")
+    prefill = build_prefill_step(cfg)
+    with Routing() as routes:
+        batch = prefill(model, {"tokens": prompt})[:, -1]
+    want = torch.cat([prefill(model, {"tokens": prompt[b:b + 1]})[:, -1]
+                      for b in range(B)])
+    return want, {
+        "prefill": "each sequence alone (dropless)",
+        "batch_prefill_dropped_slot_share": dropped_share(routes.seen, cfg),
+        "decode_vs_batch_prefill_rel_err": rel_err(res["prompt_logits"],
+                                                   batch)}
+
+
+#: two router probabilities closer than this (relative) are a near tie,
+#: which a bf16 ulp of a layer's input may reorder: 2**-7, two bf16 ulps
+#: (``tests/test_torch_moe.py``)
+NEAR_TIE = 2.0 ** -7
+
+
+class Routing:
+    """Within ``with``: each ``layers.moe_route`` call's (probs, indices),
+    on the host, in ``seen``.  With ``pinned`` (another run's ``seen``, in
+    call order) the calls route to those experts, with their own gate
+    values, while ``seen`` keeps the experts they would have chosen."""
+
+    def __init__(self, pinned=None):
+        self.seen = []
+        self.pinned = None if pinned is None else iter(pinned)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers as L
+        self.route = L.moe_route
+
+        def route(router, xf, top_k):
+            probs, vals, idx = self.route(router, xf, top_k)
+            self.seen.append((probs.float().cpu(), idx.cpu()))
+            if self.pinned is not None:
+                idx = next(self.pinned)[1].to(idx.device)
+                vals = torch.gather(probs, -1, idx)
+                vals = vals / torch.clamp(vals.sum(-1, keepdim=True),
+                                          min=1e-9)
+            return probs, vals, idx
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.moe_route = self.route
+
+
+def routing_flips(ref, got, what):
+    """Tokens routed to other experts in ``got`` than in ``ref``; fails
+    unless each differs only among experts whose probabilities in ``ref``
+    nearly tie.  ``got`` comes from a run pinned to ``ref``'s routing, so
+    each layer's input differs from ``ref``'s by rounding only."""
+    import torch
+    if len(ref) != len(got):
+        fail(f"{what}: {len(got)} routing calls against {len(ref)}")
+    flips = 0
+    for (rp, ri), (_, gi) in zip(ref, got):
+        differ = (ri != gi).any(-1)
+        for t in differ.nonzero().flatten().tolist():
+            moved = ri[t] != gi[t]
+            p = rp[t][torch.cat([ri[t][moved], gi[t][moved]])]
+            if (p.max() - p.min()) / p.max() >= NEAR_TIE:
+                fail(f"{what}: token {t} routed to {gi[t].tolist()} "
+                     f"against {ri[t].tolist()}, probabilities {p.tolist()}")
+        flips += int(differ.sum())
+    return flips
+
+
+def dropped_share(routes, cfg) -> float:
+    """Share of a run's routed slots that the capacity rule drops (each
+    expert keeps ``layers.moe_capacity`` slots a call), from its routing."""
+    import torch
+    from repro_torch.models.layers import moe_capacity
+    dropped = slots = 0
+    for _, idx in routes:
+        cap = moe_capacity(idx.shape[0], cfg.moe_top_k, cfg.moe_experts)
+        counts = torch.bincount(idx.flatten(), minlength=cfg.moe_experts)
+        dropped += int((counts - cap).clamp(min=0).sum())
+        slots += idx.numel()
+    return dropped / slots
+
+
 def phase_lm_card_vs_cpu():
-    """chatglm3-6b and gemma2-9b smoke configs at S = 512: the card's
-    forward and prefill against the port's CPU path on the same weights."""
+    """chatglm3-6b, gemma2-9b, granite-moe-1b-a400m and kimi-k2-1t-a32b
+    smoke configs at S = 512: the card's forward and prefill against the
+    port's CPU path on the same weights.  The MoE configs' card runs are
+    routed as the CPU routed; each router's own choice must equal the
+    CPU's but at near ties (bf16 activations differ by ulps between the
+    two)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
-    for arch in ("chatglm3-6b", "gemma2-9b"):
+    flips = {}
+    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS:
         cfg = get_config(arch, smoke=True)
         cpu_model = T.init(0, cfg, device="cpu")
         card_model = T.init(0, cfg, device="cpu").to("cuda")
         tokens = torch.from_numpy(
             np.random.default_rng(1).integers(0, cfg.vocab, (2, 512)))
+
+        def run(model, device):
+            return (T.forward(model, cfg, tokens.to(device))[0],
+                    build_prefill_step(cfg)(model,
+                                            {"tokens": tokens.to(device)}))
+        with Routing() as cpu_routes:
+            cpu, cpu_last = run(cpu_model, "cpu")
         ops.reset_launch_counts()
-        card = T.forward(card_model, cfg, tokens.cuda())[0]
-        card_last = build_prefill_step(cfg)(card_model,
-                                            {"tokens": tokens.cuda()})
+        with Routing(pinned=cpu_routes.seen) as card_routes:
+            card, card_last = run(card_model, "cuda")
         if ops.launch_counts()["flash_attention"] != 2 * cfg.n_layers:
             fail(f"{arch} smoke: flash_attention not launched per layer")
-        cpu = T.forward(cpu_model, cfg, tokens)[0]
-        cpu_last = build_prefill_step(cfg)(cpu_model, {"tokens": tokens})
+        if cfg.moe_experts:
+            flips[arch] = routing_flips(cpu_routes.seen, card_routes.seen,
+                                        f"{arch} smoke")
         for name, a, b in (("forward", card, cpu),
                            ("prefill", card_last, cpu_last)):
             err = float((a.cpu().float() - b.float()).abs().max()
                         / b.float().abs().max())
             if err > LM_LOGIT_TOL:
                 fail(f"{arch} smoke {name}: card and CPU differ by {err}")
-    print("LM smoke configs (chatglm3-6b, gemma2-9b) at S = 512: card "
-          "agrees with the CPU path", flush=True)
+    print(f"LM smoke configs (chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, "
+          f"kimi-k2-1t-a32b) at S = 512: card agrees with the CPU path; MoE "
+          f"tokens routed apart at near ties (of 4,096 routings each): "
+          f"{json.dumps(flips)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1603,9 +1787,10 @@ TRAIN_TOL = 3e-2
 
 
 def phase_train_card_vs_cpu():
-    """2 train steps (AdamW, n_micro 1 and 2) of the chatglm3-6b and
-    gemma2-9b smoke configs on the card and on the CPU from the same
-    weights and batches; then flash_attention under autograd must raise."""
+    """2 train steps (AdamW, n_micro 1 and 2) of the chatglm3-6b,
+    gemma2-9b and granite-moe-1b-a400m smoke configs on the card and on the
+    CPU from the same weights and batches; then flash_attention under
+    autograd must raise."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
@@ -1615,7 +1800,7 @@ def phase_train_card_vs_cpu():
     from repro_torch.train.step import TrainState, build_train_step, to_device
     worst = 0.0
     ops.reset_launch_counts()
-    for arch in ("chatglm3-6b", "gemma2-9b"):
+    for arch in ("chatglm3-6b", "gemma2-9b", MOE["arch"]):
         cfg = get_config(arch, smoke=True)
         data = SyntheticLM(cfg.vocab, 128, 4, seed=0)
         for n_micro in (1, 2):
@@ -1654,8 +1839,9 @@ def phase_train_card_vs_cpu():
         fail("flash_attention under autograd on the card did not raise")
     if ops.launch_counts()["flash_attention"]:
         fail("flash_attention launched under autograd")
-    print(f"LM training smoke configs (chatglm3-6b, gemma2-9b; n_micro 1, "
-          f"2): card agrees with the CPU path, worst relative difference "
+    print(f"LM training smoke configs (chatglm3-6b, gemma2-9b, "
+          f"granite-moe-1b-a400m; n_micro 1, 2): card agrees with the CPU "
+          f"path, worst relative difference "
           f"{worst:.3g}; flash_attention under autograd raises", flush=True)
 
 
@@ -1848,6 +2034,188 @@ def phase_train_restart():
           f"({got[10]:.6f} ... {got[19]:.6f})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# MoE serving: granite-moe-1b-a400m at full width, and TieredParamStore
+# ---------------------------------------------------------------------------
+#: the MoE serving path: granite-moe-1b-a400m at full width and depth (24
+#: layers, 32 experts, top-8), prefill of 4 x 2,048 tokens; the launcher
+#: teacher-forces 4 x 512 tokens, then decodes 32
+MOE = dict(arch="granite-moe-1b-a400m", batch=4, seq=2048, prompt_len=512,
+           new_tokens=32)
+#: the MoE smoke configs the card is held to the CPU path on
+MOE_SMOKE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
+#: flash_attention at granite's prefill: q (4, 2048, 16, 64), k/v (4, 2048,
+#: 8, 64), causal; the wgmma kernel at D = 64 with group size 2
+FLASH_MOE = (4, 2048, 2048, 16, 8, 64, True, 0, 0.0)
+#: substrings (lower case) of the MoE dispatch and combine's kernels: the
+#: sorts, the index copies, scatters and gathers, the counts' scans
+MOE_DISPATCH_NAMES = ("sort", "radix", "index", "scatter", "gather", "scan")
+#: the store's cell: one granite layer's experts at full width, 8 of 32 in
+#: the pool, the reference test's engine config; each step routes the
+#: slots of one 4 x 2,048 prefill at top-8, 8 hot experts among 12-31
+#: carrying 90% of them
+STORE = dict(hbm_experts=8, steps=30, slots=4 * 2048 * 8, n_hot=8,
+             hot_mass=0.9, seed=0,
+             config=dict(read_hot_threshold=1, sampling_period=100))
+
+
+def phase_flash_moe():
+    """flash_attention at granite's prefill shape: against the plain
+    version and bitwise on a rerun, then device times of the wgmma kernel
+    and SDPA in turns, single-call times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ref
+    H, KV, D = FLASH_MOE[3:6]
+    q, k, v = flash_inputs(FLASH_MOE, torch.bfloat16, seed=64)
+    if fak.pick_variant(q.dtype, D) != "wgmma":
+        fail(f"the rule does not pick wgmma at D = {D}")
+    want = ref.flash_attention_plain(q, k, v)
+    got = fak.flash_attention(q, k, v)
+    again = fak.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
+        fail(f"flash_attention (wgmma, D = {D}) differs from its plain "
+             f"version by {err}")
+    if not torch.equal(got, again):
+        fail(f"flash_attention (wgmma, D = {D}) is not bitwise on a rerun")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    if not torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
+                          atol=2e-2, rtol=2e-2):
+        fail("the SDPA yardstick does not compute the kernel's function")
+    del want, again
+    # device times in turns (kernel, SDPA, SDPA, kernel)
+    turns = {"wgmma": [], "sdpa": []}
+    for name in ("wgmma", "sdpa", "sdpa", "wgmma"):
+        if name == "wgmma":
+            dev = device_ms(lambda: fak.flash_attention(q, k, v),
+                            ("flash_wgmma_kernel",), n=20)
+        else:
+            dev = device_ms(sdpa, None, n=20)
+        turns[name].append(dev["device_ms"])
+    kernel_ms = cuda_ms(lambda: fak.flash_attention(q, k, v))
+    library_ms = cuda_ms(sdpa)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_plain(q, k, v), reps=5,
+                       warmup=1)
+    bound_ms, bound_by, flops, moved = flash_bound(FLASH_MOE, q, k, v)
+    device = statistics.mean(turns["wgmma"])
+    library_device = statistics.mean(turns["sdpa"])
+    stats = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
+             "max_abs_err": err, "device_ms": device,
+             "library_device_ms": library_device,
+             "device_turns_ms": turns, "kernel_ms": kernel_ms,
+             "library_ms": library_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+             "bytes": moved,
+             "device_bound_share": bound_ms / device,
+             "achieved_tflops": flops / device / 1e9}
+    print(f"flash_attention at {MOE['arch']}'s prefill (D = {D}, H = {H}, "
+          f"KV = {KV}): " + json.dumps(stats), flush=True)
+    return stats
+
+
+def route_stream(steps, slots, E, n_hot, hot_mass, seed):
+    """Expert ids of ``steps`` batches of ``slots`` routed slots, from a
+    numpy seed: ``n_hot`` hot experts among 12..E-1 carry ``hot_mass``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hot = np.sort(rng.choice(np.arange(12, E), n_hot, replace=False))
+    p = np.full(E, (1 - hot_mass) / (E - n_hot))
+    p[hot] = hot_mass / n_hot
+    return hot, [rng.choice(E, size=slots, p=p) for _ in range(steps)]
+
+
+def phase_tiered_params():
+    """TieredParamStore over one granite layer's 32 experts at full width,
+    8 in the card's pool: 30 steps of route + step_engine, residency,
+    migrations and hits bitwise equal to the same store on the CPU, the
+    hot set resident at the end, gather bitwise equal to the host rows in
+    bf16; ms per step, gather ms and the promotions' host-to-device GB/s."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tiered_params import TieredParamStore
+    cfg = lm_cfg(MOE)
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(STORE["seed"])
+    weights = {"w_gate": rng.standard_normal((E, d, f), np.float32),
+               "w_up": rng.standard_normal((E, d, f), np.float32),
+               "w_down": rng.standard_normal((E, f, d), np.float32)}
+    hot, stream = route_stream(STORE["steps"], STORE["slots"], E,
+                               STORE["n_hot"], STORE["hot_mass"],
+                               STORE["seed"])
+    kw = dict(config=STORE["config"], seed=STORE["seed"])
+    card = TieredParamStore(weights, STORE["hbm_experts"], device="cuda",
+                            **kw)
+    cpu = TieredParamStore(weights, STORE["hbm_experts"], device="cpu", **kw)
+    if not card.host["w_gate"].is_pinned():
+        fail("the store's host experts are not pinned")
+    ids_card = [torch.from_numpy(ids).cuda() for ids in stream]
+    torch.cuda.synchronize()
+    step_ms = []
+    for ids, ids_dev in zip(stream, ids_card):
+        t0 = time.perf_counter()
+        card.route(ids_dev)
+        card.step_engine(100.0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        cpu.route(ids)
+        cpu.step_engine(100.0)
+        same = (np.array_equal(card.slot_of, cpu.slot_of)
+                and np.array_equal(card.expert_of_slot, cpu.expert_of_slot)
+                and (card.migrations, card.fast_hits, card.slow_hits)
+                == (cpu.migrations, cpu.fast_hits, cpu.slow_hits))
+        if not same:
+            fail(f"the store on the card and on the CPU diverge: "
+                 f"{card.slot_of} vs {cpu.slot_of}")
+    resident = set(np.flatnonzero(card.slot_of >= 0).tolist())
+    if not set(hot.tolist()) <= resident:
+        fail(f"hot experts {hot.tolist()} not all resident: {resident}")
+    ids = np.concatenate([hot[:4], np.flatnonzero(card.slot_of < 0)[:4]])
+    for name, w in weights.items():
+        want = torch.from_numpy(w[ids]).to(torch.bfloat16)
+        got = card.gather(name, ids)
+        if not (torch.equal(got.cpu(), want) and torch.equal(
+                card.hbm[name].cpu(), cpu.hbm[name])):
+            fail(f"gather({name!r}) is not the host rows in bf16")
+    gather_ms = cuda_ms(lambda: [card.gather(n, ids) for n in weights])
+    # promotions: an evicted expert comes back, host to device, in turns
+    out = [int(e) for e in ids[4:]]
+    n_moves = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        for e_in in out:
+            e_out = int(card.expert_of_slot[0])
+            card._demote(e_out)
+            card._promote(e_in)
+            out[out.index(e_in)] = e_out
+            n_moves += 1
+    torch.cuda.synchronize()
+    promote_s = time.perf_counter() - t0
+    stats = {"experts": E, "hbm_experts": STORE["hbm_experts"],
+             "expert_mb_host_f32": card.bytes_per_expert / 1e6,
+             "expert_mb_pool_bf16": card.bytes_per_expert / 2e6,
+             "steps": STORE["steps"], "slots_per_step": STORE["slots"],
+             "hot": hot.tolist(), "resident": sorted(resident),
+             "migrations": card.migrations, "fast_hits": card.fast_hits,
+             "slow_hits": card.slow_hits, "hit_rate": card.hit_rate(),
+             "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+             "gather_ms_8_ids_3_leaves": gather_ms,
+             "promotions_timed": n_moves,
+             "promote_ms": promote_s * 1e3 / n_moves,
+             "promote_gb_per_s": n_moves * card.bytes_per_expert / promote_s
+             / 1e9}
+    print("TieredParamStore (granite-moe-1b-a400m layer, full expert width, "
+          "card = CPU bitwise): " + json.dumps(stats), flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1904,6 +2272,15 @@ def main() -> int:
     phase_train_card_vs_cpu()
     phase_train_full()
     phase_train_restart()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_moe = phase_flash_moe()
+    moe_model, moe_launches, _ = phase_lm_prefill(MOE)
+    phase_lm_decode(moe_model, MOE)
+    del moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tiered_params()
 
     def row(name, mod, timing, by_path):
         out = {
@@ -1945,9 +2322,11 @@ def main() -> int:
              splits=attention_timing["splits"],
              cold_l2_device_ms=attention_timing["cold_l2_device_ms"]),
         dict(row("flash_attention", fak, flash_timing,
-                 {"lm_prefill": prefill_launches["flash_attention"]}),
+                 {"lm_prefill": prefill_launches["flash_attention"],
+                  "lm_prefill_moe": moe_launches["flash_attention"]}),
              mma_ms=flash_timing["mma_ms"],
-             achieved_tflops=flash_timing["achieved_tflops"]),
+             achieved_tflops=flash_timing["achieved_tflops"],
+             moe_shape=flash_moe),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

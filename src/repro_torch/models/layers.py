@@ -1,9 +1,10 @@
-"""Neural-net layers of the dense attention archs, in PyTorch.
+"""Neural-net layers of the attention archs, in PyTorch.
 
 A copy of the reference package's ``repro.models.layers`` for the blocks the
-dense attention archs use: GQA attention (full / sliding-window, logit
-softcap, RoPE incl. partial "2d"), RMS and layer norm, and the SwiGLU,
-GeGLU and GeLU MLPs.  Parameters are mappings of tensors (plain dicts or
+attention archs use: GQA attention (full / sliding-window, logit softcap,
+RoPE incl. partial "2d"), RMS and layer norm, the SwiGLU, GeGLU and GeLU
+MLPs, and the top-k mixture of experts with sort-based dispatch.
+Parameters are mappings of tensors (plain dicts or
 ``nn.ParameterDict``); the casts sit where the reference has them, so that
 bf16 rounds at the same places.  ``attn_apply`` runs prefill attention
 through :func:`repro_torch.kernels.ops.flash_attention` under the
@@ -12,8 +13,7 @@ reference's threshold (``S >= 512`` and ``S * B <= 2**22``), and the inline
 passes ``use_flash=False`` and takes ``_sdpa``, as the reference's trainer
 does.
 
-Not ported yet (ROADMAP queue 1): top-k MoE, RG-LRU, mLSTM, sLSTM and
-cross-attention.
+Not ported yet (ROADMAP queue 1): RG-LRU, mLSTM, sLSTM and cross-attention.
 """
 
 from __future__ import annotations
@@ -239,3 +239,112 @@ def mlp_apply(params: Params, x, kind: str = "swiglu"):
         return (F.gelu(x @ params["w_gate"], approximate="tanh") *
                 (x @ params["w_up"])) @ params["w_down"]
     return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: top-k routing, sort-based dispatch into (E, C, D)
+# expert buffers, three batched expert products, a gated combine
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen, d_model, d_ff, n_experts, dtype=torch.bfloat16,
+             device="cuda"):
+    """The router ``(d_model, E)`` in float32 whatever ``dtype`` is; the
+    experts ``(E, d_model, d_ff)`` / ``(E, d_ff, d_model)`` in ``dtype``."""
+    def einit(shape, fan_in):
+        scale = 1.0 / math.sqrt(fan_in)
+        w = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return w.mul_(2 * scale).sub_(scale).to(dtype)
+    return {"router": dense_init(gen, d_model, n_experts, torch.float32,
+                                 device),
+            "w_gate": einit((n_experts, d_model, d_ff), d_model),
+            "w_up": einit((n_experts, d_model, d_ff), d_model),
+            "w_down": einit((n_experts, d_ff, d_model), d_ff)}
+
+
+def moe_capacity(tokens: int, top_k: int, n_experts: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots per expert: dropless (``T * k``) up to 4,096 slots (decode
+    steps, small batches), else GShard's ``T * k * factor / E``."""
+    if tokens * top_k <= 4096:
+        return tokens * top_k
+    return max(top_k, int(tokens * top_k * capacity_factor / n_experts))
+
+
+def moe_route(router, xf, top_k: int):
+    """Router in float32: (probs (T, E), gate values (T, k) renormalised
+    to sum 1, gate indices (T, k)).  The top k come from a stable
+    descending sort, so tied probabilities go to the lower expert index,
+    as ``jax.lax.top_k`` breaks them."""
+    probs = torch.softmax(xf.to(torch.float32) @ router, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :top_k], idx[:, :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _counts(ids, n: int):
+    """How often each of ``0..n-1`` occurs in ``ids``: integer adds, so
+    exact in any order, and no host sync (``torch.bincount`` on a card
+    reads the max back first)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
+
+
+def moe_dispatch(gate_idx, n_experts: int, capacity: int):
+    """Each slot's row of the flattened ``(E * C)`` expert buffer, in slot
+    order (token-major), and whether it fits; a dropped slot's row is its
+    expert's first, as the reference's clamped indices are.  Slots are
+    ordered by a stable sort on their expert, so an expert keeps its first
+    ``C`` slots in token order and drops the rest, as the reference's
+    stable argsort and one-hot cumsum decide."""
+    slot_expert = gate_idx.reshape(-1)
+    sorted_expert, order = torch.sort(slot_expert, stable=True)
+    counts = _counts(slot_expert, n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(slot_expert.numel(), device=gate_idx.device) \
+        - starts[sorted_expert]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    keep = pos < capacity
+    return slot_expert * capacity + torch.where(keep, pos, 0), keep
+
+
+def moe_experts(params: Params, buf):
+    """The SwiGLU expert products on ``(E, C, D)`` buffers."""
+    h = F.silu(torch.bmm(buf, params["w_gate"])) * \
+        torch.bmm(buf, params["w_up"])
+    return torch.bmm(h, params["w_down"])
+
+
+def moe_combine(out_buf, rows, keep, gate_vals):
+    """Each slot's expert output (0 where it was dropped) times its gate
+    value cast to the activation dtype, summed over a token's k slots in
+    rank order: a fixed order, so reruns on the card are bitwise."""
+    T, k = gate_vals.shape
+    E, C, D = out_buf.shape
+    slot_out = torch.where(keep[:, None], out_buf.reshape(E * C, D)[rows], 0)
+    weighted = slot_out * gate_vals.reshape(-1, 1).to(slot_out.dtype)
+    return weighted.reshape(T, k, D).sum(1)
+
+
+def moe_apply(params: Params, x, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25):
+    """x: (B, S, D) -> ((B, S, D), the Switch load-balancing aux loss)."""
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    probs, gate_vals, gate_idx = moe_route(params["router"], xf, top_k)
+    C = moe_capacity(T, top_k, n_experts, capacity_factor)
+    rows, keep = moe_dispatch(gate_idx, n_experts, C)
+    # dropped slots are copied into a spare last row, cut off after
+    spare = torch.where(keep, rows, n_experts * C)
+    buf = xf.new_zeros((n_experts * C + 1, D)).index_copy(
+        0, spare, xf.repeat_interleave(top_k, 0))
+    buf = buf[:-1].reshape(n_experts, C, D)
+    y = moe_combine(moe_experts(params, buf), rows, keep, gate_vals)
+    density = _counts(gate_idx[:, 0], n_experts).to(torch.float32) / T
+    aux = n_experts * torch.sum(density * probs.mean(0))
+    return y.reshape(B, S, D).to(x.dtype), aux

@@ -1,8 +1,10 @@
-"""The decoder-only LM for the dense attention archs, in PyTorch.
+"""The decoder-only LM for the attention archs, in PyTorch.
 
 A port of the reference package's ``repro.models.transformer`` for
 ``family="lm"`` with attention blocks (``attn``, ``attn_local``): chatglm3-6b,
-gemma2-9b, h2o-danube-3-4b and command-r-plus-104b.  The model is an
+gemma2-9b, h2o-danube-3-4b and command-r-plus-104b, and with a mixture of
+experts in place of the MLP (``cfg.moe_experts``): granite-moe-1b-a400m and
+kimi-k2-1t-a32b.  The model is an
 ``nn.Module`` (:class:`Model`: the embedding, a ``ModuleList`` of
 :class:`Block` and the final norm); a Python loop over the layers takes the
 place of the reference's ``lax.scan`` over stacked layer groups.  Weights
@@ -15,13 +17,14 @@ reference's ``jax.checkpoint`` of a layer group.
 API (functions over the model, as in the reference):
   init(key, cfg, device)                -> Model   (weights made on device)
   params_from_jax(params_np, cfg)       -> Model   (the reference's weights)
-  forward / hidden_forward              -> logits / hidden   (train, prefill)
-  loss_fn(params, cfg, batch)           -> scalar loss
+  forward / hidden_forward              -> (logits / hidden, aux)
+  loss_fn(params, cfg, batch)           -> scalar loss (+ 0.01 x aux)
   decode_init(cfg, batch, max_len)      -> cache   (a list, one per layer)
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
 
-MoE, recurrent (RG-LRU, mLSTM, sLSTM) and cross-attention layers, and the
-encoder-decoder and vision families, raise ``NotImplementedError``
+``aux`` is the sum over MoE layers of the Switch load-balancing loss (0.0
+without MoE).  Recurrent (RG-LRU, mLSTM, sLSTM) and cross-attention layers,
+and the encoder-decoder and vision families, raise ``NotImplementedError``
 (ROADMAP queue 1).
 """
 
@@ -40,7 +43,6 @@ from .config import ModelConfig
 
 #: the ROADMAP queue 1 item that ports each unsupported layer kind / family
 _NOT_PORTED = {
-    "moe": "MoE layers",
     "rglru": "RG-LRU layers",
     "mlstm": "mLSTM and sLSTM layers",
     "slstm": "mLSTM and sLSTM layers",
@@ -54,8 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     what = None
     if cfg.family != "lm":
         what = cfg.family
-    elif cfg.moe_experts:
-        what = "moe"
     else:
         what = next((k for k in cfg.pattern if not k.startswith("attn")),
                     None)
@@ -117,18 +117,25 @@ def _norm_module(p):
     return _frozen(p)
 
 
+def _params(p: Optional[Mapping[str, torch.Tensor]]):
+    return None if p is None else nn.ParameterDict(
+        {k: _frozen(v) for k, v in p.items()})
+
+
 class Block(nn.Module):
-    """One decoder layer: norm1, attention, norm2, MLP (``d_ff > 0``)."""
+    """One decoder layer: norm1, attention, norm2 and an MLP or a mixture
+    of experts (``d_ff > 0``)."""
 
     def __init__(self, kind: str, norm1, attn: Mapping[str, torch.Tensor],
-                 norm2=None, mlp: Optional[Mapping[str, torch.Tensor]] = None):
+                 norm2=None, mlp: Optional[Mapping[str, torch.Tensor]] = None,
+                 moe: Optional[Mapping[str, torch.Tensor]] = None):
         super().__init__()
         self.kind = kind
         self.norm1 = _norm_module(norm1)
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in attn.items()})
+        self.attn = _params(attn)
         self.norm2 = None if norm2 is None else _norm_module(norm2)
-        self.mlp = None if mlp is None else nn.ParameterDict(
-            {k: _frozen(v) for k, v in mlp.items()})
+        self.mlp = _params(mlp)
+        self.moe = _params(moe)
 
 
 class Model(nn.Module):
@@ -162,11 +169,16 @@ def _apply_norm(cfg: ModelConfig, p, x):
 def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Block:
     dt = cfg.tdtype
     attn = L.attn_init(gen, _attn_cfg(cfg, kind), dt, device)
-    norm2 = mlp = None
+    norm2 = mlp = moe = None
     if cfg.d_ff > 0:
         norm2 = _norm_init(cfg, cfg.d_model, device)
-        mlp = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
-    return Block(kind, _norm_init(cfg, cfg.d_model, device), attn, norm2, mlp)
+        if cfg.moe_experts:
+            moe = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, dt,
+                             device)
+        else:
+            mlp = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+    return Block(kind, _norm_init(cfg, cfg.d_model, device), attn, norm2, mlp,
+                 moe)
 
 
 def init(key, cfg: ModelConfig, device="cuda") -> Model:
@@ -228,7 +240,7 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
             p = _tree(stacked, lambda a, g=g: conv(np.asarray(a)[g]))
             blocks[g * period + k] = Block(
                 cfg.pattern[k], p["norm1"], p["attn"], p.get("norm2"),
-                p.get("mlp"))
+                p.get("mlp"), p.get("moe"))
     unembed = params_np.get("unembed")
     return Model(cfg, conv(params_np["embed"]),
                  _tree(params_np["norm_f"], conv), blocks,
@@ -242,16 +254,22 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
 def _layer(p: Block, cfg: ModelConfig, x, positions,
            kv_cache: Optional[L.KVCache] = None, use_flash: bool = True):
     """One layer; prefill without a cache, decode with one.  Returns (x,
-    the layer's new cache or None)."""
+    the layer's new cache or None, its MoE aux loss or 0.0)."""
     h = _apply_norm(cfg, p.norm1, x)
     out, kv_cache = L.attn_apply(p.attn, _attn_cfg(cfg, p.kind), h,
                                  positions, kv_cache=kv_cache,
                                  use_flash=use_flash)
     x = x + out
+    aux = 0.0
     if p.norm2 is not None:
         h2 = _apply_norm(cfg, p.norm2, x)
-        x = x + L.mlp_apply(p.mlp, h2, cfg.act)
-    return x, kv_cache
+        if p.moe is not None:
+            out2, aux = L.moe_apply(p.moe, h2, cfg.moe_experts,
+                                    cfg.moe_top_k)
+        else:
+            out2 = L.mlp_apply(p.mlp, h2, cfg.act)
+        x = x + out2
+    return x, kv_cache, aux
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens, extra):
@@ -275,26 +293,29 @@ def logits_from_hidden(params: Model, cfg: ModelConfig, x):
 
 
 def _layer_out(p: Block, cfg: ModelConfig, x, positions, use_flash: bool):
-    return _layer(p, cfg, x, positions, use_flash=use_flash)[0]
+    x, _, aux = _layer(p, cfg, x, positions, use_flash=use_flash)
+    return x, aux
 
 
 def hidden_forward(params: Model, cfg: ModelConfig, tokens, extra=None,
                    use_flash: bool = True):
-    """Embed -> layers -> final norm.  Returns (hidden, aux); aux is 0.0
-    (it carries the MoE balance loss in the reference).  Under
+    """Embed -> layers -> final norm.  Returns (hidden, aux); aux is the
+    sum of the MoE layers' balance losses, 0.0 without MoE.  Under
     ``cfg.remat`` a layer keeps only its input for the backward pass and
     runs again there."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for blk in params.blocks:
         if remat:
-            x = checkpoint(_layer_out, blk, cfg, x, positions, use_flash,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_out, blk, cfg, x, positions, use_flash,
+                              use_reentrant=False)
         else:
-            x = _layer_out(blk, cfg, x, positions, use_flash)
-    return _apply_norm(cfg, params.norm_f, x), 0.0
+            x, a = _layer_out(blk, cfg, x, positions, use_flash)
+        aux = aux + a
+    return _apply_norm(cfg, params.norm_f, x), aux
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, extra=None,
@@ -359,7 +380,7 @@ def decode_init(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
     """tokens: (B, S); position: an int (every token at it) or a (B, S)
     tensor.  Returns (logits, cache); the cache buffers are updated in
-    place."""
+    place.  MoE layers' aux losses are dropped."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, None)
     if isinstance(position, torch.Tensor) and position.dim() > 0:
@@ -368,7 +389,7 @@ def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
         positions = torch.full((B, S), int(position), device=x.device)
     new_cache = []
     for blk, entry in zip(params.blocks, cache):
-        x, kv = _layer(blk, cfg, x, positions, entry["kv"])
+        x, kv, _ = _layer(blk, cfg, x, positions, entry["kv"])
         new_cache.append({"kv": kv})
     x = _apply_norm(cfg, params.norm_f, x)
     return logits_from_hidden(params, cfg, x), new_cache

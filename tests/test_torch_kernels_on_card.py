@@ -356,6 +356,7 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 40, 40, 2, 2, 8, True, 0, 0.0),          # D = 8
     (1, 1100, 1100, 16, 8, 256, True, 512, 50.0),  # gemma2's head shape
     (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),   # chatglm3-6b's prefill
+    (4, 2048, 2048, 16, 8, 64, True, 0, 0.0),    # granite-moe-1b-a400m's
     # the wgmma kernel's edges: S and T not multiples of its 128-row
     # tiles, S != T with a softcap, a window without causality, rows that
     # see no key

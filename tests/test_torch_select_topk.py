@@ -133,6 +133,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.train, repro_torch.optim\n"
         "import repro_torch.train.step, repro_torch.train.trainer\n"
         "import repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.core.pages, repro_torch.core.engine\n"
+        "import repro_torch.core.tiered_params\n"
         "from repro_torch.configs import all_arch_ids, get_config\n"
         "[get_config(a) for a in all_arch_ids()]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
