@@ -82,9 +82,11 @@ call over the same window beside it.
     plain version (f32 within 2e-5, bf16 within 2e-2) on the CPU test
     file's cases, gemma2-9b's head shape (D 256, softcap 50, window
     4,096 at S = 4,608), h2o-danube-3-4b's (D 120), chatglm3-6b's
-    prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)) and the wgmma
+    prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)), the wgmma
     kernel's edges (ragged S and T, S != T with a softcap, a window
-    without causality, rows that see no key); every bf16 case the rule
+    without causality, rows that see no key) and recurrentgemma-2b's
+    prefill (q (2, 4096, 10, 256), k/v (2, 4096, 1, 256), window
+    2,048); every bf16 case the rule
     sends to the wgmma kernel also runs the old mma kernel.  Times at
     chatglm3-6b's prefill: the wgmma and the mma kernel in turns (new,
     old, old, new), with achieved TFLOP/s and the share of the bound,
@@ -101,8 +103,9 @@ call over the same window beside it.
     kernel launched by decode, and its logits after teacher-forcing the
     prompt against prefill's last-position logits on the same prompt
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
-15. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m and kimi-k2-1t-a32b
-    smoke configs at S = 512 on the card against the port's CPU path; the
+15. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
+    recurrentgemma-2b and xlstm-1.3b smoke configs at S = 512 on the card
+    against the port's CPU path; the
     MoE configs' card runs routed as the CPU routed (``Routing``), each
     router's own choice equal to the CPU's but at near ties;
 16. ``select_topk`` past the old 65,535-page ceiling: both kernels
@@ -112,8 +115,10 @@ call over the same window beside it.
     120 epochs), B = 8, ``crn=True``: bitwise equal to ``FORCE="plain"``,
     the cluster kernel once per epoch;
 17. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
-    the chatglm3-6b, gemma2-9b and granite-moe-1b-a400m smoke configs (the
-    MoE layers' index ops under autograd) from the same weights and
+    the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, recurrentgemma-2b
+    and xlstm-1.3b smoke configs (the MoE layers' index ops, the RG-LRU
+    scan, the mLSTM chunks and the sLSTM loop under autograd) from the
+    same weights and
     ``SyntheticLM`` batches, losses and grad norms within ``TRAIN_TOL``,
     no kernel launched; ``flash_attention`` under autograd on the card
     raises;
@@ -157,7 +162,38 @@ call over the same window beside it.
     CPU after every step, the hot set resident at the end, ``gather``
     bitwise equal to the host rows in bf16; ms per step, gather ms for 8
     ids (half resident) and the promotions' host-to-device GB/s;
-24. one JSON line per the kernel table, the card line again, and as the
+24. ``flash_attention`` at recurrentgemma-2b's prefill shape (q (2, 4096,
+    10, 256), k/v (2, 4096, 1, 256), causal, window 2,048; the mma kernel
+    at D = 256 with group size 10), as phase 20: against the plain version
+    (bf16 2e-2) and bitwise on a rerun, device times of the kernel and SDPA
+    in turns (SDPA with the window's boolean mask and K/V repeated to the
+    query heads, the kernels it ran recorded), single-call times, the bound
+    and its share;
+25. the recurrentgemma-2b serving path at full width and depth (26 layers:
+    18 RG-LRU, 8 local attention; random weights from a seed): the
+    launch counters set to 0 just before and read just after a prefill of
+    2 x 4,096 tokens (flash_attention exactly 8 times, all on the mma
+    kernel), prefill ms and tokens/s, last logits against ``FORCE="plain"``
+    within ``LM_LOGIT_TOL``, a profiled prefill with device busy against
+    the CUDA-event time, the matrix products', flash's and the RG-LRU
+    scan's shares; then its launcher (``--full --batch 4 --prompt-len 512
+    --new-tokens 32``): ms per token, no kernel launched by decode, prompt
+    logits against prefill's last-position logits within
+    ``LM_LOGIT_TOL``;
+26. the xlstm-1.3b serving path at full width and depth (48 layers: 42
+    mLSTM, 6 sLSTM): a prefill of 4 x 2,048 tokens launching no kernel,
+    finite logits bitwise equal on a rerun, prefill ms and tokens/s, a
+    profiled prefill with the sLSTM loop's and the mLSTM chunks' device
+    and host ms; then its launcher, as above, its prompt logits against a
+    prefill whose mLSTM layers run at chunk 1 (what decode computes; the
+    reference's mLSTM clamps within a chunk only) within
+    ``LM_LOGIT_TOL``, the distance to the ordinary prefill reported
+    beside;
+27. one layer of each recurrent kind at full width (RG-LRU at d_model
+    2,560, mLSTM and sLSTM at 2,048; B = 1, S = 512) on the card against
+    the port's CPU path: output and state within 1e-4 (float32) and 3e-2
+    (bf16) of the largest CPU value, card ms per call;
+28. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -259,7 +295,8 @@ def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
                   for t, c in zip(launches.values(), per_call))
     return {"device_ms": us / 1e3, "device_mean_ms": mean_us / 1e3,
             "host_us": host_s * 1e6 / n,
-            "kernels_per_call": sum(len(t) for t in launches.values()) / n}
+            "kernels_per_call": sum(len(t) for t in launches.values()) / n,
+            "kernels": sorted(name[:100] for name in launches)}
 
 
 def gups_study(engine, device="cuda", scale=SCALE, **opts):
@@ -1235,6 +1272,9 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 1, 64, True, 0, 30.0),
     (1, 640, 640, 8, 8, 128, False, 256, 0.0),
     (1, 192, 64, 4, 2, 128, False, 8, 0.0),
+    # recurrentgemma-2b's local attention (the mma kernel at D = 256, group
+    # size 10, the 2,048-token window biting at S = 4,096)
+    (2, 4096, 4096, 10, 1, 256, True, 2048, 0.0),
 ]
 #: the main path's shape (chatglm3-6b's prefill), the one timed
 FLASH_MAIN = FLASH_CASES[13]
@@ -1364,31 +1404,90 @@ def lm_cfg(spec=None):
     return get_config((spec or LM)["arch"])
 
 
-def device_rows(prof):
+def device_rows(prof, skip=()):
     """(device us, kernel name, launches) of a profile's CUDA kernels,
-    longest first."""
+    longest first; rows named in ``skip`` (the device side of profiler
+    ranges) left out."""
     import torch
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+        if us and e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.key not in skip:
             rows.append((us, e.key[:80], e.count))
     return sorted(rows, reverse=True)
 
 
-def profile_prefill(prefill, model, batch):
+class Ranges:
+    """Within ``with``: every call of the module functions ``targets``
+    names (``{label: (module name, attribute)}``) runs in a profiler range
+    of its label; a recursive function's outermost call only."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.saved = {}
+
+    def __enter__(self):
+        import importlib
+        import torch
+        for label, (modname, name) in self.targets.items():
+            mod = importlib.import_module(modname)
+            orig = getattr(mod, name)
+            depth = [0]
+
+            def wrapped(*args, _orig=orig, _label=label, _depth=depth,
+                        **kw):
+                if _depth[0]:
+                    return _orig(*args, **kw)
+                _depth[0] += 1
+                try:
+                    with torch.profiler.record_function(_label):
+                        return _orig(*args, **kw)
+                finally:
+                    _depth[0] -= 1
+            self.saved[label] = (mod, name, orig)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved.values():
+            setattr(mod, name, orig)
+
+
+def range_times(prof, labels):
+    """Per label: the device ms of the kernels its ranges launched, the
+    host ms spent in them, and their count."""
+    import torch
+    out = {}
+    for e in prof.key_averages():
+        if e.key in labels and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.key] = {"device_ms": e.device_time_total / 1e3,
+                          "host_ms": e.cpu_time_total / 1e3,
+                          "calls": e.count}
+    missing = set(labels) - set(out)
+    if missing:
+        fail(f"the profile has no range {sorted(missing)}")
+    return out
+
+
+def profile_prefill(prefill, model, batch, ranges=None):
     """Device time of one profiled prefill, and the shares of the flash
     kernel, the matrix products and the MoE dispatch
-    and combine's kernels (sorts, index scatters and gathers, scans)."""
+    and combine's kernels (sorts, index scatters and gathers, scans); with
+    ``ranges`` (``Ranges``' targets), the device and host ms of each and
+    its share of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    ranges = ranges or {}
+    with Ranges(ranges), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         prefill(model, batch)
         torch.cuda.synchronize()
-    rows = device_rows(prof)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof, skip=set(ranges))
     busy_us = sum(us for us, _, _ in rows)
 
     def share(names):
@@ -1398,18 +1497,33 @@ def profile_prefill(prefill, model, batch):
                                    for v in ("wgmma", "mma", "fma")])
     gemm_ms, gemm_share = share(GEMM_NAMES)
     moe_ms, moe_share = share(MOE_DISPATCH_NAMES)
-    return {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_ms,
-            "flash_share": flash_share, "gemm_ms": gemm_ms,
-            "gemm_share": gemm_share,
-            "moe_dispatch_ms": moe_ms, "moe_dispatch_share": moe_share,
-            "kernels": sum(c for _, _, c in rows),
-            "top": [{"name": n, "ms": us / 1e3, "count": c}
-                    for us, n, c in rows[:8]]}
+    out = {"device_busy_ms": busy_us / 1e3, "flash_ms": flash_ms,
+           "flash_share": flash_share, "gemm_ms": gemm_ms,
+           "gemm_share": gemm_share,
+           "moe_dispatch_ms": moe_ms, "moe_dispatch_share": moe_share,
+           "kernels": sum(c for _, _, c in rows),
+           "top": [{"name": n, "ms": us / 1e3, "count": c}
+                   for us, n, c in rows[:8]]}
+    if ranges:
+        out["profiled_wall_ms"] = wall_ms
+        out["ranges"] = range_times(prof, set(ranges))
+        for r in out["ranges"].values():
+            r["device_share"] = r["device_ms"] * 1e3 / busy_us
+    return out
+
+
+def attn_layers(cfg) -> int:
+    """The config's attention layers: one flash launch each per prefill."""
+    return sum(kind.startswith("attn") for kind in cfg.pattern)
 
 
 def phase_lm_prefill(spec=None):
     """chatglm3-6b (or ``spec``'s arch) at full width: build_prefill_step
-    on (4, 2,048)."""
+    on ``spec``'s (batch, seq), flash_attention once per attention layer
+    on ``spec``'s variant (``wgmma`` unless it names one).  Logits against
+    ``FORCE="plain"``; where no layer attends (no kernel on the path),
+    bitwise against a rerun instead.  ``spec["ranges"]`` names functions
+    whose share of the profiled prefill is reported."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fak
@@ -1432,44 +1546,52 @@ def phase_lm_prefill(spec=None):
     prefill = build_prefill_step(cfg)
     prefill(model, batch)                      # warm-up (cuBLAS handles)
     torch.cuda.synchronize()
+    n_flash = attn_layers(cfg)
+    variant = spec.get("flash_variant", "wgmma")
     ops.reset_launch_counts()
     logits = prefill(model, batch)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     by_variant = dict(fak.launches_by_variant)
-    if launches["flash_attention"] != cfg.n_layers or \
-            sum(launches.values()) != cfg.n_layers:
+    if launches["flash_attention"] != n_flash or \
+            sum(launches.values()) != n_flash:
         fail(f"prefill launches {launches}, expected flash_attention "
-             f"{cfg.n_layers} and nothing else")
-    if by_variant != {"fma": 0, "mma": 0, "wgmma": cfg.n_layers}:
+             f"{n_flash} and nothing else")
+    if by_variant != {**dict.fromkeys(by_variant, 0), variant: n_flash}:
         fail(f"prefill's flash launches by variant {by_variant}, expected "
-             f"all {cfg.n_layers} on the wgmma kernel")
+             f"all {n_flash} on the {variant} kernel")
     if not (logits.shape == (B, 1, cfg.padded_vocab)
             and bool(torch.isfinite(logits.float()).all())):
         fail("prefill logits non-finite or misshapen")
-    prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=5, warmup=1)
-    ops.FORCE = "plain"
-    try:
-        plain_logits = prefill(model, batch)
-        plain_prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=3,
-                                   warmup=0)
-    finally:
-        ops.FORCE = None
-    err = float((logits.float() - plain_logits.float()).abs().max()
-                / plain_logits.float().abs().max())
-    if err > LM_LOGIT_TOL:
-        fail(f"prefill logits with the kernel and the plain version differ "
-             f"by {err} (relative to the largest logit)")
-    prof = profile_prefill(prefill, model, batch)
+    reps = spec.get("reps", 5)
+    prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=reps, warmup=1)
+    if n_flash:
+        ops.FORCE = "plain"
+        try:
+            plain_logits = prefill(model, batch)
+            plain_prefill_ms = cuda_ms(lambda: prefill(model, batch),
+                                       reps=3, warmup=0)
+        finally:
+            ops.FORCE = None
+        err = float((logits.float() - plain_logits.float()).abs().max()
+                    / plain_logits.float().abs().max())
+        if err > LM_LOGIT_TOL:
+            fail(f"prefill logits with the kernel and the plain version "
+                 f"differ by {err} (relative to the largest logit)")
+        check = {"plain_prefill_ms": plain_prefill_ms,
+                 "last_logits_rel_err_vs_plain": err}
+    else:
+        if not torch.equal(prefill(model, batch), logits):
+            fail(f"{cfg.arch} prefill logits are not bitwise on a rerun")
+        check = {"last_logits_bitwise_on_rerun": True}
+    prof = profile_prefill(prefill, model, batch, spec.get("ranges"))
     if cfg.moe_experts:
         with Routing() as routes:
             prefill(model, batch)
         prof["moe_dropped_slot_share"] = dropped_share(routes.seen, cfg)
     stats = {"params": n_params, "weights_gb": weight_gb, "init_s": init_s,
              "batch": B, "seq": S, "prefill_ms": prefill_ms,
-             "tokens_per_s": B * S / prefill_ms * 1e3,
-             "plain_prefill_ms": plain_prefill_ms,
-             "last_logits_rel_err_vs_plain": err,
+             "tokens_per_s": B * S / prefill_ms * 1e3, **check,
              "flash_launches": launches["flash_attention"],
              "flash_launches_by_variant": by_variant,
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1490,7 +1612,8 @@ def phase_lm_decode(model, spec=None):
     from repro_torch.serve.step import build_prefill_step
     spec = spec or LM
     cfg = lm_cfg(spec)
-    argv = ["--arch", cfg.arch, "--full", "--batch", str(spec["batch"]),
+    B = spec.get("launch_batch", spec["batch"])
+    argv = ["--arch", cfg.arch, "--full", "--batch", str(B),
             "--prompt-len", str(spec["prompt_len"]), "--new-tokens",
             str(spec["new_tokens"])]
     ops.reset_launch_counts()
@@ -1499,12 +1622,14 @@ def phase_lm_decode(model, spec=None):
     if any(decode_launches.values()):
         fail(f"the launcher's decode loop launched kernels: {decode_launches}")
     tokens = res["tokens"]
-    if tokens.shape != (spec["batch"], spec["new_tokens"]) or \
+    if tokens.shape != (B, spec["new_tokens"]) or \
             int(tokens.min()) < 0 or int(tokens.max()) >= cfg.padded_vocab:
         fail(f"launcher tokens misshapen or out of range: {tokens.shape}")
     ops.reset_launch_counts()
     if cfg.moe_experts:
         want, moe = moe_prompt_check(model, cfg, res)
+    elif "mlstm" in cfg.pattern:
+        want, moe = mlstm_prompt_check(model, cfg, res)
     else:
         want = build_prefill_step(cfg)(model,
                                        {"tokens": res["prompt"]})[:, -1]
@@ -1558,6 +1683,37 @@ def moe_prompt_check(model, cfg, res):
         "batch_prefill_dropped_slot_share": dropped_share(routes.seen, cfg),
         "decode_vs_batch_prefill_rel_err": rel_err(res["prompt_logits"],
                                                    batch)}
+
+
+def mlstm_prompt_check(model, cfg, res):
+    """(prefill's last logits on the launcher's prompt with the mLSTM
+    layers at chunk 1, stats).  The reference's mLSTM clamps its
+    within-chunk decay weights but not the state carried between chunks,
+    so decode (chunks of one token) computes what a chunk-1 prefill
+    computes, not what a prefill in chunks of 256 does (ROADMAP queue 3 b);
+    the ordinary prefill's distance from decode is reported beside."""
+    import functools
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.serve.step import build_prefill_step
+    prefill = build_prefill_step(cfg)
+    batch = {"tokens": res["prompt"]}
+    ordinary = prefill(model, batch)[:, -1]
+    apply = L.mlstm_apply
+    L.mlstm_apply = functools.partial(apply, chunk=1)
+    try:
+        t0 = time.perf_counter()
+        want = prefill(model, batch)[:, -1]
+        torch.cuda.synchronize()
+        chunk_1_s = time.perf_counter() - t0
+    finally:
+        L.mlstm_apply = apply
+    return want, {
+        "prefill": "mLSTM layers at chunk 1 (what decode computes)",
+        "chunk_1_prefill_s": chunk_1_s,
+        "decode_vs_chunk_256_prefill_rel_err": rel_err(res["prompt_logits"],
+                                                       ordinary),
+        "chunk_1_vs_chunk_256_prefill_rel_err": rel_err(want, ordinary)}
 
 
 #: two router probabilities closer than this (relative) are a near tie,
@@ -1634,9 +1790,9 @@ def dropped_share(routes, cfg) -> float:
 
 
 def phase_lm_card_vs_cpu():
-    """chatglm3-6b, gemma2-9b, granite-moe-1b-a400m and kimi-k2-1t-a32b
-    smoke configs at S = 512: the card's forward and prefill against the
-    port's CPU path on the same weights.  The MoE configs' card runs are
+    """chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
+    recurrentgemma-2b and xlstm-1.3b smoke configs at S = 512: the card's
+    forward and prefill against the port's CPU path on the same weights.  The MoE configs' card runs are
     routed as the CPU routed; each router's own choice must equal the
     CPU's but at near ties (bf16 activations differ by ulps between the
     two)."""
@@ -1647,7 +1803,7 @@ def phase_lm_card_vs_cpu():
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
     flips = {}
-    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS:
+    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS + RNN_ARCHS:
         cfg = get_config(arch, smoke=True)
         cpu_model = T.init(0, cfg, device="cpu")
         card_model = T.init(0, cfg, device="cpu").to("cuda")
@@ -1663,8 +1819,9 @@ def phase_lm_card_vs_cpu():
         ops.reset_launch_counts()
         with Routing(pinned=cpu_routes.seen) as card_routes:
             card, card_last = run(card_model, "cuda")
-        if ops.launch_counts()["flash_attention"] != 2 * cfg.n_layers:
-            fail(f"{arch} smoke: flash_attention not launched per layer")
+        if ops.launch_counts()["flash_attention"] != 2 * attn_layers(cfg):
+            fail(f"{arch} smoke: flash_attention not launched per "
+                 f"attention layer")
         if cfg.moe_experts:
             flips[arch] = routing_flips(cpu_routes.seen, card_routes.seen,
                                         f"{arch} smoke")
@@ -1675,7 +1832,8 @@ def phase_lm_card_vs_cpu():
             if err > LM_LOGIT_TOL:
                 fail(f"{arch} smoke {name}: card and CPU differ by {err}")
     print(f"LM smoke configs (chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, "
-          f"kimi-k2-1t-a32b) at S = 512: card agrees with the CPU path; MoE "
+          f"kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b) at S = 512: card "
+          f"agrees with the CPU path; MoE "
           f"tokens routed apart at near ties (of 4,096 routings each): "
           f"{json.dumps(flips)}", flush=True)
 
@@ -1788,9 +1946,9 @@ TRAIN_TOL = 3e-2
 
 def phase_train_card_vs_cpu():
     """2 train steps (AdamW, n_micro 1 and 2) of the chatglm3-6b,
-    gemma2-9b and granite-moe-1b-a400m smoke configs on the card and on the
-    CPU from the same weights and batches; then flash_attention under
-    autograd must raise."""
+    gemma2-9b, granite-moe-1b-a400m, recurrentgemma-2b and xlstm-1.3b smoke
+    configs on the card and on the CPU from the same weights and batches;
+    then flash_attention under autograd must raise."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
@@ -1800,7 +1958,7 @@ def phase_train_card_vs_cpu():
     from repro_torch.train.step import TrainState, build_train_step, to_device
     worst = 0.0
     ops.reset_launch_counts()
-    for arch in ("chatglm3-6b", "gemma2-9b", MOE["arch"]):
+    for arch in ("chatglm3-6b", "gemma2-9b", MOE["arch"]) + RNN_ARCHS:
         cfg = get_config(arch, smoke=True)
         data = SyntheticLM(cfg.vocab, 128, 4, seed=0)
         for n_micro in (1, 2):
@@ -1840,7 +1998,8 @@ def phase_train_card_vs_cpu():
     if ops.launch_counts()["flash_attention"]:
         fail("flash_attention launched under autograd")
     print(f"LM training smoke configs (chatglm3-6b, gemma2-9b, "
-          f"granite-moe-1b-a400m; n_micro 1, 2): card agrees with the CPU "
+          f"granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b; n_micro 1, "
+          f"2): card agrees with the CPU "
           f"path, worst relative difference "
           f"{worst:.3g}; flash_attention under autograd raises", flush=True)
 
@@ -2044,6 +2203,36 @@ MOE = dict(arch="granite-moe-1b-a400m", batch=4, seq=2048, prompt_len=512,
            new_tokens=32)
 #: the MoE smoke configs the card is held to the CPU path on
 MOE_SMOKE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
+#: the recurrent archs, whose smoke configs phases 15 and 17 take
+RNN_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")
+#: recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
+#: attention at D = 256 with 10 query heads on one KV head, window 2,048):
+#: prefill of 2 x 4,096 tokens, so the window bites, flash on the mma
+#: kernel; the launcher teacher-forces 4 x 512 tokens, then decodes 32.
+#: The profile reports the RG-LRU scan's share.
+RG = dict(arch="recurrentgemma-2b", batch=2, seq=4096, launch_batch=4,
+          prompt_len=512, new_tokens=32, flash_variant="mma",
+          ranges={"rglru_scan": ("repro_torch.models.layers",
+                                 "associative_scan")})
+#: flash_attention at recurrentgemma's prefill: q (2, 4096, 10, 256), k/v
+#: (2, 4096, 1, 256), causal, window 2,048: 6,292,480 attended pairs per
+#: (batch, head)
+FLASH_RG = FLASH_CASES[-1]
+#: xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM; no
+#: attention, so no kernel): prefill of 4 x 2,048 tokens, the launcher as
+#: above; the profile reports the sLSTM loop's and the mLSTM chunks'
+#: shares.  Its prefill is host-bound (2,048 sLSTM steps a layer), so it
+#: is timed over 2 calls
+XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=512,
+          new_tokens=32, reps=2,
+          ranges={"slstm": ("repro_torch.models.layers", "slstm_apply"),
+                  "mlstm": ("repro_torch.models.layers", "mlstm_apply")})
+#: one layer of each recurrent kind at full width (RG-LRU at
+#: recurrentgemma's d_model, mLSTM and sLSTM at xlstm's), B = 1, S = 512
+#: (two mLSTM chunks): the card against the port's CPU path, relative to
+#: the largest CPU value
+RNN_LAYERS = (("rglru", 2560, 10), ("mlstm", 2048, 4), ("slstm", 2048, 4))
+RNN_LAYER_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 #: flash_attention at granite's prefill: q (4, 2048, 16, 64), k/v (4, 2048,
 #: 8, 64), causal; the wgmma kernel at D = 64 with group size 2
 FLASH_MOE = (4, 2048, 2048, 16, 8, 64, True, 0, 0.0)
@@ -2059,63 +2248,85 @@ STORE = dict(hbm_experts=8, steps=30, slots=4 * 2048 * 8, n_hot=8,
              config=dict(read_hot_threshold=1, sampling_period=100))
 
 
-def phase_flash_moe():
-    """flash_attention at granite's prefill shape: against the plain
-    version and bitwise on a rerun, then device times of the wgmma kernel
-    and SDPA in turns, single-call times and the bound."""
+def phase_flash_shape(arch, case, variant):
+    """flash_attention at ``arch``'s prefill shape ``case``: the rule's
+    kernel (``variant``) against the plain version and bitwise on a rerun,
+    then device times of the kernel and SDPA in turns (kernel, SDPA, SDPA,
+    kernel), single-call times and the bound.  With a window, SDPA takes
+    the window's boolean mask and K/V repeated to the query heads (not
+    timed), and the kernels it ran (the backend PyTorch picked) are
+    recorded."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ref
-    H, KV, D = FLASH_MOE[3:6]
-    q, k, v = flash_inputs(FLASH_MOE, torch.bfloat16, seed=64)
-    if fak.pick_variant(q.dtype, D) != "wgmma":
-        fail(f"the rule does not pick wgmma at D = {D}")
-    want = ref.flash_attention_plain(q, k, v)
-    got = fak.flash_attention(q, k, v)
-    again = fak.flash_attention(q, k, v)
+    B, S, T, H, KV, D, causal, window, cap = case
+    q, k, v = flash_inputs(case, torch.bfloat16, seed=D)
+    if fak.pick_variant(q.dtype, D) != variant:
+        fail(f"the rule does not pick {variant} at D = {D}")
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    want = ref.flash_attention_plain(q, k, v, **kw)
+    got = fak.flash_attention(q, k, v, **kw)
+    again = fak.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
-        fail(f"flash_attention (wgmma, D = {D}) differs from its plain "
+        fail(f"flash_attention ({variant}, D = {D}) differs from its plain "
              f"version by {err}")
     if not torch.equal(got, again):
-        fail(f"flash_attention (wgmma, D = {D}) is not bitwise on a rerun")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fail(f"flash_attention ({variant}, D = {D}) is not bitwise on a "
+             f"rerun")
+    qt = q.transpose(1, 2).contiguous()
+    if window:
+        kt, vt = (x.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        qp = torch.arange(S, device="cuda")[:, None]
+        kp = torch.arange(T, device="cuda")[None, :]
+        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    if not torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
-                          atol=2e-2, rtol=2e-2):
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+    else:
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+    if cap or not torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
+                                 atol=2e-2, rtol=2e-2):
         fail("the SDPA yardstick does not compute the kernel's function")
     del want, again
     # device times in turns (kernel, SDPA, SDPA, kernel)
-    turns = {"wgmma": [], "sdpa": []}
-    for name in ("wgmma", "sdpa", "sdpa", "wgmma"):
-        if name == "wgmma":
-            dev = device_ms(lambda: fak.flash_attention(q, k, v),
-                            ("flash_wgmma_kernel",), n=20)
+    turns = {variant: [], "sdpa": []}
+    sdpa_kernels = set()
+    for name in (variant, "sdpa", "sdpa", variant):
+        if name == variant:
+            dev = device_ms(lambda: fak.flash_attention(q, k, v, **kw),
+                            (f"flash_{variant}_kernel",), n=20)
         else:
             dev = device_ms(sdpa, None, n=20)
+            sdpa_kernels.update(dev["kernels"])
         turns[name].append(dev["device_ms"])
-    kernel_ms = cuda_ms(lambda: fak.flash_attention(q, k, v))
+    kernel_ms = cuda_ms(lambda: fak.flash_attention(q, k, v, **kw))
     library_ms = cuda_ms(sdpa)
-    plain_ms = cuda_ms(lambda: ref.flash_attention_plain(q, k, v), reps=5,
-                       warmup=1)
-    bound_ms, bound_by, flops, moved = flash_bound(FLASH_MOE, q, k, v)
-    device = statistics.mean(turns["wgmma"])
+    plain_ms = cuda_ms(lambda: ref.flash_attention_plain(q, k, v, **kw),
+                       reps=5, warmup=1)
+    bound_ms, bound_by, flops, moved = flash_bound(case, q, k, v)
+    device = statistics.mean(turns[variant])
     library_device = statistics.mean(turns["sdpa"])
-    stats = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
-             "max_abs_err": err, "device_ms": device,
+    stats = {"shape": {"q": list(q.shape), "kv": list(k.shape),
+                       "causal": causal, "window": window},
+             "variant": variant, "max_abs_err": err, "device_ms": device,
              "library_device_ms": library_device,
-             "device_turns_ms": turns, "kernel_ms": kernel_ms,
-             "library_ms": library_ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-             "bytes": moved,
+             "device_turns_ms": turns, "sdpa_kernels": sorted(sdpa_kernels),
+             "kernel_ms": kernel_ms, "library_ms": library_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "flops": flops, "bytes": moved,
              "device_bound_share": bound_ms / device,
              "achieved_tflops": flops / device / 1e9}
-    print(f"flash_attention at {MOE['arch']}'s prefill (D = {D}, H = {H}, "
+    print(f"flash_attention at {arch}'s prefill (D = {D}, H = {H}, "
           f"KV = {KV}): " + json.dumps(stats), flush=True)
     return stats
 
@@ -2216,6 +2427,51 @@ def phase_tiered_params():
     return stats
 
 
+def phase_recurrent_layers():
+    """One layer of each recurrent kind at full width on the card against
+    the port's CPU path, same weights and input (from a seed), float32 and
+    bf16: the output and each leaf of the new state within
+    ``RNN_LAYER_TOL`` of the largest CPU value; card ms per call beside.
+    The recurrences have no hand-written kernel, so this holds them at
+    full width."""
+    import torch
+    from repro_torch.models import layers as L
+    init = {"rglru": lambda g, D, H, dt: L.rglru_init(
+                g, D, int(1.5 * D), H, dtype=dt, device="cpu"),
+            "mlstm": lambda g, D, H, dt: L.mlstm_init(g, D, H, dt, "cpu"),
+            "slstm": lambda g, D, H, dt: L.slstm_init(g, D, H, dt, "cpu")}
+    apply = {"rglru": lambda p, x, H: L.rglru_apply(p, x),
+             "mlstm": lambda p, x, H: L.mlstm_apply(p, x, H),
+             "slstm": lambda p, x, H: L.slstm_apply(p, x)}
+    stats = {}
+    for kind, D, H in RNN_LAYERS:
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            gen = torch.Generator().manual_seed(0)
+            params = init[kind](gen, D, H, dt)
+            x = torch.randn((1, 512, D), generator=gen).to(dt)
+            t0 = time.perf_counter()
+            cpu_out, cpu_state = apply[kind](params, x, H)
+            cpu_s = time.perf_counter() - t0
+            card_params = {k: v.cuda() for k, v in params.items()}
+            xc = x.cuda()
+            out, state = apply[kind](card_params, xc, H)
+            errs = [rel_err(a.cpu(), b)
+                    for a, b in zip((out,) + tuple(state),
+                                    (cpu_out,) + tuple(cpu_state))]
+            if not all(e <= RNN_LAYER_TOL[dname] for e in errs):
+                fail(f"{kind} at d_model {D} ({dname}): card and CPU differ "
+                     f"by {errs} (output, state leaves)")
+            card_ms = cuda_ms(lambda: apply[kind](card_params, xc, H),
+                              reps=5, warmup=1)
+            stats[f"{kind}-{dname}"] = {"d_model": D, "rel_err": errs,
+                                        "card_ms": card_ms, "cpu_s": cpu_s}
+            del params, card_params, out, state, cpu_out, cpu_state
+    print("recurrent layers at full width (B = 1, S = 512), card against the "
+          "CPU path: " + json.dumps(stats), flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2260,7 +2516,7 @@ def main() -> int:
     gc.collect()                      # the serving pools (~4.2 GB) go first
     torch.cuda.empty_cache()
     flash_timing = phase_flash_attention()
-    model, prefill_launches, _ = phase_lm_prefill()
+    model, prefill_launches, lm_stats = phase_lm_prefill()
     phase_lm_decode(model)
     del model
     gc.collect()
@@ -2274,13 +2530,29 @@ def main() -> int:
     phase_train_restart()
     gc.collect()
     torch.cuda.empty_cache()
-    flash_moe = phase_flash_moe()
-    moe_model, moe_launches, _ = phase_lm_prefill(MOE)
+    flash_moe = phase_flash_shape(MOE["arch"], FLASH_MOE, "wgmma")
+    moe_model, moe_launches, moe_stats = phase_lm_prefill(MOE)
     phase_lm_decode(moe_model, MOE)
     del moe_model
     gc.collect()
     torch.cuda.empty_cache()
     phase_tiered_params()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_rg = phase_flash_shape(RG["arch"], FLASH_RG, "mma")
+    rg_model, rg_launches, rg_stats = phase_lm_prefill(RG)
+    phase_lm_decode(rg_model, RG)
+    del rg_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl_model, xl_launches, _ = phase_lm_prefill(XL)
+    if any(xl_launches.values()):
+        fail(f"xlstm's prefill launched kernels: {xl_launches}")
+    phase_lm_decode(xl_model, XL)
+    del xl_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recurrent_layers()
 
     def row(name, mod, timing, by_path):
         out = {
@@ -2302,6 +2574,10 @@ def main() -> int:
                 out[key] = timing[key]
         return out
 
+    flash_by_variant = {
+        v: sum(st["flash_launches_by_variant"][v]
+               for st in (lm_stats, moe_stats, rg_stats))
+        for v in fak.VARIANTS}
     topk_by_variant = {v: tune_by_variant[v]
                        + serving_by_variant["select_topk"][v]
                        for v in tune_by_variant}
@@ -2323,10 +2599,13 @@ def main() -> int:
              cold_l2_device_ms=attention_timing["cold_l2_device_ms"]),
         dict(row("flash_attention", fak, flash_timing,
                  {"lm_prefill": prefill_launches["flash_attention"],
-                  "lm_prefill_moe": moe_launches["flash_attention"]}),
+                  "lm_prefill_moe": moe_launches["flash_attention"],
+                  "lm_prefill_recurrentgemma":
+                      rg_launches["flash_attention"]}),
+             launches_by_variant=flash_by_variant,
              mma_ms=flash_timing["mma_ms"],
              achieved_tflops=flash_timing["achieved_tflops"],
-             moe_shape=flash_moe),
+             moe_shape=flash_moe, recurrentgemma_shape=flash_rg),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

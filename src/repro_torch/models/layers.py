@@ -1,9 +1,15 @@
-"""Neural-net layers of the attention archs, in PyTorch.
+"""Neural-net layers of the decoder-only LMs, in PyTorch.
 
-A copy of the reference package's ``repro.models.layers`` for the blocks the
-attention archs use: GQA attention (full / sliding-window, logit softcap,
+A copy of the reference package's ``repro.models.layers`` for the blocks of
+the ``lm`` family: GQA attention (full / sliding-window, logit softcap,
 RoPE incl. partial "2d"), RMS and layer norm, the SwiGLU, GeGLU and GeLU
-MLPs, and the top-k mixture of experts with sort-based dispatch.
+MLPs, the top-k mixture of experts with sort-based dispatch, and the
+recurrent blocks: RG-LRU (recurrentgemma; its linear recurrence through
+:func:`associative_scan`, a log-depth scan), mLSTM (xLSTM's matrix memory,
+chunkwise) and sLSTM (scalar memories, one step per position).  The
+recurrences are PyTorch operations, as the reference computes them with
+XLA operations outside any Pallas kernel; their float32 products must not
+round to TF32, so nothing here sets ``allow_tf32``.
 Parameters are mappings of tensors (plain dicts or
 ``nn.ParameterDict``); the casts sit where the reference has them, so that
 bf16 rounds at the same places.  ``attn_apply`` runs prefill attention
@@ -13,7 +19,7 @@ reference's threshold (``S >= 512`` and ``S * B <= 2**22``), and the inline
 passes ``use_flash=False`` and takes ``_sdpa``, as the reference's trainer
 does.
 
-Not ported yet (ROADMAP queue 1): RG-LRU, mLSTM, sLSTM and cross-attention.
+Not ported yet (ROADMAP queue 1 item 6): cross-attention.
 """
 
 from __future__ import annotations
@@ -348,3 +354,256 @@ def moe_apply(params: Params, x, n_experts: int, top_k: int,
     density = _counts(gate_idx[:, 0], n_experts).to(torch.float32) / T
     aux = n_experts * torch.sum(density * probs.mean(0))
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma): a gated linear recurrence over a log-depth scan
+# ---------------------------------------------------------------------------
+
+
+def rglru_init(gen, d_model, d_rnn, n_heads, conv_width=4,
+               dtype=torch.bfloat16, device="cuda"):
+    """The input and gate branches, a ``(conv_width, d_rnn)`` depthwise
+    conv, the recurrence's gates and ``lambda_p`` (float32, 4 to 9).
+    ``n_heads`` is unused, as in the reference."""
+    conv = torch.randn((conv_width, d_rnn), generator=gen,
+                       dtype=torch.float32, device=device)
+    return {
+        "w_x": dense_init(gen, d_model, d_rnn, dtype, device),
+        "w_y": dense_init(gen, d_model, d_rnn, dtype, device),
+        "conv_w": (conv * 0.02).to(dtype),
+        "w_gate_a": dense_init(gen, d_rnn, d_rnn, dtype, device),
+        "w_gate_x": dense_init(gen, d_rnn, d_rnn, dtype, device),
+        "lambda_p": torch.linspace(4.0, 9.0, d_rnn, dtype=torch.float32,
+                                   device=device),
+        "w_out": dense_init(gen, d_rnn, d_model, dtype, device),
+    }
+
+
+def _combine(a1, b1, a2, b2):
+    """``(a1, b1)`` then ``(a2, b2)``: the affine maps ``h -> a h + b``
+    composed."""
+    return a1 * a2, b1 * a2 + b2
+
+
+def _interleave(even, odd):
+    """``even[0], odd[0], even[1], ...`` along dim 1 (``even`` as long as
+    ``odd`` or one longer)."""
+    n = odd.shape[1]
+    out = torch.stack((even[:, :n], odd), 2).flatten(1, 2)
+    return torch.cat((out, even[:, n:]), 1) if even.shape[1] > n else out
+
+
+def associative_scan(a, b):
+    """Inclusive scan of the pairs ``(a_t, b_t)`` along dim 1 under
+    :func:`_combine`: ``(prod_{s<=t} a_s, h_t)`` with ``h_t = a_t h_{t-1} +
+    b_t`` from ``h_{-1} = 0``.
+
+    ``jax.lax.associative_scan``'s odd/even recursion, so the same tree of
+    combinations (and float32 rounds where it does): combine neighbouring
+    pairs, scan those recursively, fill in the even positions; log2(S)
+    levels of elementwise passes in place of S sequential steps."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+    oa, ob = associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat((a[:, :1], ea), 1)
+    eb = torch.cat((b[:, :1], eb), 1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _rglru_core(params: Params, u, h0=None):
+    """u: (B, S, R) after the conv.  Float32 gates of bf16 products, the
+    recurrence in float32 from ``h0``; returns (h in u's dtype, float32
+    h of the last position)."""
+    B, S, R = u.shape
+    r = torch.sigmoid((u @ params["w_gate_a"]).to(torch.float32))
+    i = torch.sigmoid((u @ params["w_gate_x"]).to(torch.float32))
+    log_a = -8.0 * r * F.softplus(params["lambda_p"])
+    a = torch.exp(log_a)
+    gated_x = u.to(torch.float32) * i * torch.sqrt(
+        torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    if h0 is None:
+        h0 = torch.zeros((B, R), dtype=torch.float32, device=u.device)
+    aa, bb = associative_scan(a, gated_x)
+    h = aa * h0[:, None, :] + bb
+    return h.to(u.dtype), h[:, -1]
+
+
+def rglru_apply(params: Params, x, state=None):
+    """x: (B, S, D).  ``state``: (conv tail (B, W-1, R), h (B, R) float32)
+    for decode.  Returns (out, (new tail, h of the last position)).  The
+    causal depthwise conv is the reference's left-to-right sum of W shifted
+    products, so bf16 rounds where it rounds."""
+    u = x @ params["w_x"]
+    gate_y = F.gelu(x @ params["w_y"], approximate="tanh")
+    W = params["conv_w"].shape[0]
+    if state is None:
+        conv_tail = u.new_zeros((x.shape[0], W - 1, u.shape[-1]))
+        h0 = None
+    else:
+        conv_tail, h0 = state
+    upad = torch.cat([conv_tail, u], 1)
+    S = u.shape[1]
+    uc = sum(upad[:, i:i + S] * params["conv_w"][i] for i in range(W))
+    y, h_last = _rglru_core(params, uc, h0)
+    out = (y * gate_y) @ params["w_out"]
+    new_tail = upad[:, -(W - 1):] if W > 1 else conv_tail
+    return out, (new_tail, h_last)
+
+
+def rglru_state_init(batch, d_rnn, conv_width=4, dtype=torch.bfloat16,
+                     device="cuda"):
+    return (torch.zeros((batch, conv_width - 1, d_rnn), dtype=dtype,
+                        device=device),
+            torch.zeros((batch, d_rnn), dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar
+# memories, a sequential loop)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_init(gen, d_model, n_heads, dtype=torch.bfloat16, device="cuda"):
+    """q/k are d_model wide, v and the output ``2 d_model``; the input and
+    forget gates' ``w_if`` is float32 whatever ``dtype`` is."""
+    d_inner = 2 * d_model
+    return {
+        "w_up": dense_init(gen, d_model, d_inner, dtype, device),
+        "w_q": dense_init(gen, d_model, d_model, dtype, device),
+        "w_k": dense_init(gen, d_model, d_model, dtype, device),
+        "w_v": dense_init(gen, d_model, d_inner, dtype, device),
+        "w_if": dense_init(gen, d_model, 2 * n_heads, torch.float32, device),
+        "w_down": dense_init(gen, d_inner, d_model, dtype, device),
+    }
+
+
+def mlstm_apply(params: Params, x, n_heads: int, state=None,
+                chunk: int = 256):
+    """Chunkwise-parallel mLSTM: within a chunk the quadratic form with
+    relative decay, across chunks the carried matrix state (C, n) per
+    head; float32 throughout.  ``chunk = S`` when S is not a multiple of
+    ``chunk`` (decode, short prompts), as in the reference.
+
+    As in the reference, the within-chunk decay weights are clamped
+    (``exp(min(g, 0))``) while the carried state's are not, so a chunk of
+    S tokens and S chunks of one compute different functions (ROADMAP
+    queue 3 b); decode is the latter."""
+    B, S, D = x.shape
+    u = x @ params["w_up"]
+    di = u.shape[-1]
+    H = n_heads
+    hd, hv = D // H, di // H
+    f32 = torch.float32
+    q = (x @ params["w_q"]).reshape(B, S, H, hd) / math.sqrt(hd)
+    k = (x @ params["w_k"]).reshape(B, S, H, hd) / math.sqrt(hd)
+    v = (x @ params["w_v"]).reshape(B, S, H, hv)
+    gates = (x.to(f32) @ params["w_if"]).reshape(B, S, H, 2)
+    log_f = -F.softplus(-gates[..., 0])     # forget gate in log space
+    log_i = gates[..., 1]                   # input gate (exp gating)
+    if S % chunk != 0:
+        chunk = S
+    if state is None:
+        C = torch.zeros((B, H, hd, hv), dtype=f32, device=x.device)
+        n = torch.zeros((B, H, hd), dtype=f32, device=x.device)
+    else:
+        C, n = state
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()[None, :, :, None]
+    outs = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        qb, kb, vb = q[:, sl].to(f32), k[:, sl].to(f32), v[:, sl].to(f32)
+        lib = log_i[:, sl]
+        cs_f = torch.cumsum(log_f[:, sl], 1)            # (B, c, H)
+        total_f = cs_f[:, -1]
+        dec_in = torch.exp(cs_f)[..., None]
+        # within the chunk: attention with relative decay, clamped
+        g = cs_f[:, :, None, :] - cs_f[:, None, :, :] + lib[:, None, :, :]
+        g = torch.where(mask, g, -math.inf)
+        sw = torch.einsum("bthd,bshd->btsh", qb, kb) * \
+            torch.exp(torch.clamp(g, max=0.0))
+        intra = torch.einsum("btsh,bshd->bthd", sw, vb)
+        nor_i = sw.sum(2)
+        # from the carried state
+        inter = torch.einsum("bthd,bhde->bthe", qb * dec_in, C)
+        nor_c = torch.einsum("bthd,bhd->bth", qb * dec_in, n)
+        nor = torch.clamp(torch.abs(nor_i + nor_c), min=1.0)
+        outs.append((intra + inter) / nor[..., None])
+        # the carried state, unclamped
+        dec_out = torch.exp(total_f[:, None, :] - cs_f + lib)   # (B, c, H)
+        kd = kb * dec_out[..., None]
+        decay = torch.exp(total_f)
+        C = C * decay[..., None, None] + \
+            torch.einsum("bshd,bshe->bhde", kd, vb)
+        n = n * decay[..., None] + kd.sum(1)
+    y = torch.cat(outs, 1).reshape(B, S, di).to(x.dtype)
+    y = y * F.silu(u)
+    return y @ params["w_down"], (C, n)
+
+
+def mlstm_state_init(batch, d_model, n_heads, device="cuda"):
+    """(C (B, H, hd, hv), n (B, H, hd)), float32 zeros."""
+    hd = d_model // n_heads        # q/k head dim
+    hv = 2 * d_model // n_heads    # v head dim
+    return (torch.zeros((batch, n_heads, hd, hv), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, n_heads, hd), dtype=torch.float32,
+                        device=device))
+
+
+def slstm_init(gen, d_model, n_heads, dtype=torch.bfloat16, device="cuda"):
+    """Input and recurrent weights of the four gates, the output
+    projection and an rms ``norm`` (float32).  ``n_heads`` is unused, as in
+    the reference."""
+    return {
+        "w_in": dense_init(gen, d_model, 4 * d_model, dtype, device),
+        "r_in": dense_init(gen, d_model, 4 * d_model, dtype, device),
+        "w_down": dense_init(gen, d_model, d_model, dtype, device),
+        "norm": torch.zeros((d_model,), dtype=torch.float32, device=device),
+    }
+
+
+def slstm_apply(params: Params, x, state=None):
+    """sLSTM: a sequential loop over positions (scalar memories, exp
+    gating stabilised by the running max ``m``), float32 from a state
+    ``(h, c, n, m)`` (zeros, ``n`` ones); ``-softplus(-f)`` is the
+    forget gate's log-sigmoid, as the reference writes it.  The input
+    products and ``r_in`` are cast to float32 once per call."""
+    B, S, D = x.shape
+    zf = (x @ params["w_in"]).to(torch.float32)        # (B, S, 4D)
+    if state is None:
+        h, c, m = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+                   for _ in range(3))
+        n = torch.ones((B, D), dtype=torch.float32, device=x.device)
+    else:
+        h, c, n, m = state
+    r_in = params["r_in"].to(torch.float32)
+    hs = []
+    for t in range(S):
+        z, i, f, o = (zf[:, t] + h @ r_in).chunk(4, -1)
+        z = torch.tanh(z)
+        o = torch.sigmoid(o)
+        log_f = -F.softplus(-f)
+        m_new = torch.maximum(log_f + m, i)
+        ig = torch.exp(i - m_new)
+        fg = torch.exp(log_f + m - m_new)
+        c = fg * c + ig * z
+        n = fg * n + ig
+        h = o * (c / torch.clamp(n, min=1.0))
+        m = m_new
+        hs.append(h)
+    y = rms_norm(torch.stack(hs, 1).to(x.dtype), params["norm"])
+    return y @ params["w_down"], (h, c, n, m)
+
+
+def slstm_state_init(batch, d_model, device="cuda"):
+    """(h, c, n, m): float32 zeros, ``n`` ones."""
+    z = torch.zeros((batch, d_model), dtype=torch.float32, device=device)
+    return (z, z.clone(), torch.ones_like(z), z.clone())

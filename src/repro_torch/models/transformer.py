@@ -1,10 +1,12 @@
-"""The decoder-only LM for the attention archs, in PyTorch.
+"""The decoder-only LM, in PyTorch.
 
 A port of the reference package's ``repro.models.transformer`` for
-``family="lm"`` with attention blocks (``attn``, ``attn_local``): chatglm3-6b,
-gemma2-9b, h2o-danube-3-4b and command-r-plus-104b, and with a mixture of
-experts in place of the MLP (``cfg.moe_experts``): granite-moe-1b-a400m and
-kimi-k2-1t-a32b.  The model is an
+``family="lm"``: attention blocks (``attn``, ``attn_local``) for chatglm3-6b,
+gemma2-9b, h2o-danube-3-4b and command-r-plus-104b, with a mixture of
+experts in place of the MLP (``cfg.moe_experts``) for granite-moe-1b-a400m
+and kimi-k2-1t-a32b, and recurrent blocks (``rglru``, ``mlstm``, ``slstm``)
+for recurrentgemma-2b (RG-LRU with local attention) and xlstm-1.3b.  Only
+attention blocks carry an MLP, as in the reference.  The model is an
 ``nn.Module`` (:class:`Model`: the embedding, a ``ModuleList`` of
 :class:`Block` and the final norm); a Python loop over the layers takes the
 place of the reference's ``lax.scan`` over stacked layer groups.  Weights
@@ -23,9 +25,10 @@ API (functions over the model, as in the reference):
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
 
 ``aux`` is the sum over MoE layers of the Switch load-balancing loss (0.0
-without MoE).  Recurrent (RG-LRU, mLSTM, sLSTM) and cross-attention layers,
-and the encoder-decoder and vision families, raise ``NotImplementedError``
-(ROADMAP queue 1).
+without MoE).  A decode cache entry is ``{"kv": ...}`` for an attention
+layer and ``{"state": ...}`` for a recurrent one.  The encoder-decoder and
+vision families (cross-attention) raise ``NotImplementedError`` (ROADMAP
+queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -41,28 +44,22 @@ from torch.utils.checkpoint import checkpoint
 from . import layers as L
 from .config import ModelConfig
 
-#: the ROADMAP queue 1 item that ports each unsupported layer kind / family
-_NOT_PORTED = {
-    "rglru": "RG-LRU layers",
-    "mlstm": "mLSTM and sLSTM layers",
-    "slstm": "mLSTM and sLSTM layers",
-    "encdec": "cross-attention (encdec, vlm)",
-    "vlm": "cross-attention (encdec, vlm)",
-}
+#: the ROADMAP queue 1 item that ports what the port does not run yet
+_NOT_PORTED = "ROADMAP.md queue 1 item 6: cross-attention (encdec, vlm)"
+#: the recurrent block kinds
+RNN_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    what = None
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the encoder-decoder and vision families."""
     if cfg.family != "lm":
-        what = cfg.family
-    else:
-        what = next((k for k in cfg.pattern if not k.startswith("attn")),
-                    None)
-    if what is not None:
         raise NotImplementedError(
-            f"{cfg.arch}: {what!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1: {_NOT_PORTED.get(what, what)})")
+            f"{cfg.arch}: {cfg.family!r} is not ported to repro_torch yet "
+            f"({_NOT_PORTED})")
+    unknown = set(cfg.pattern) - {"attn", "attn_local", *RNN_KINDS}
+    if unknown:
+        raise ValueError(f"{cfg.arch}: unknown block kinds {sorted(unknown)}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,16 +120,20 @@ def _params(p: Optional[Mapping[str, torch.Tensor]]):
 
 
 class Block(nn.Module):
-    """One decoder layer: norm1, attention, norm2 and an MLP or a mixture
-    of experts (``d_ff > 0``)."""
+    """One decoder layer: norm1, then attention (``attn*`` kinds) or a
+    recurrence (``rnn``: RG-LRU, mLSTM or sLSTM); attention layers with
+    ``d_ff > 0`` add norm2 and an MLP or a mixture of experts."""
 
-    def __init__(self, kind: str, norm1, attn: Mapping[str, torch.Tensor],
+    def __init__(self, kind: str, norm1,
+                 attn: Optional[Mapping[str, torch.Tensor]] = None,
                  norm2=None, mlp: Optional[Mapping[str, torch.Tensor]] = None,
-                 moe: Optional[Mapping[str, torch.Tensor]] = None):
+                 moe: Optional[Mapping[str, torch.Tensor]] = None,
+                 rnn: Optional[Mapping[str, torch.Tensor]] = None):
         super().__init__()
         self.kind = kind
         self.norm1 = _norm_module(norm1)
         self.attn = _params(attn)
+        self.rnn = _params(rnn)
         self.norm2 = None if norm2 is None else _norm_module(norm2)
         self.mlp = _params(mlp)
         self.moe = _params(moe)
@@ -166,11 +167,24 @@ def _apply_norm(cfg: ModelConfig, p, x):
     return L.layer_norm(x, p["w"], p["b"])
 
 
+def _d_rnn(cfg: ModelConfig) -> int:
+    """RG-LRU's recurrence width: 1.5 d_model."""
+    return int(cfg.d_model * 1.5)
+
+
 def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Block:
     dt = cfg.tdtype
-    attn = L.attn_init(gen, _attn_cfg(cfg, kind), dt, device)
-    norm2 = mlp = moe = None
-    if cfg.d_ff > 0:
+    attn = rnn = norm2 = mlp = moe = None
+    if kind.startswith("attn"):
+        attn = L.attn_init(gen, _attn_cfg(cfg, kind), dt, device)
+    elif kind == "rglru":
+        rnn = L.rglru_init(gen, cfg.d_model, _d_rnn(cfg), cfg.n_heads,
+                           dtype=dt, device=device)
+    elif kind == "mlstm":
+        rnn = L.mlstm_init(gen, cfg.d_model, cfg.n_heads, dt, device)
+    else:
+        rnn = L.slstm_init(gen, cfg.d_model, cfg.n_heads, dt, device)
+    if cfg.d_ff > 0 and kind.startswith("attn"):
         norm2 = _norm_init(cfg, cfg.d_model, device)
         if cfg.moe_experts:
             moe = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, dt,
@@ -178,7 +192,7 @@ def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Block:
         else:
             mlp = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
     return Block(kind, _norm_init(cfg, cfg.d_model, device), attn, norm2, mlp,
-                 moe)
+                 moe, rnn)
 
 
 def init(key, cfg: ModelConfig, device="cuda") -> Model:
@@ -239,8 +253,8 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
         for g in range(n_groups):
             p = _tree(stacked, lambda a, g=g: conv(np.asarray(a)[g]))
             blocks[g * period + k] = Block(
-                cfg.pattern[k], p["norm1"], p["attn"], p.get("norm2"),
-                p.get("mlp"), p.get("moe"))
+                cfg.pattern[k], p["norm1"], p.get("attn"), p.get("norm2"),
+                p.get("mlp"), p.get("moe"), p.get("rnn"))
     unembed = params_np.get("unembed")
     return Model(cfg, conv(params_np["embed"]),
                  _tree(params_np["norm_f"], conv), blocks,
@@ -251,14 +265,30 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _rnn_apply(p: Block, cfg: ModelConfig, h, state):
+    """The layer's recurrence from ``state`` (None: from zeros); returns
+    (out, new state)."""
+    if p.kind == "rglru":
+        return L.rglru_apply(p.rnn, h, state)
+    if p.kind == "mlstm":
+        return L.mlstm_apply(p.rnn, h, cfg.n_heads, state)
+    return L.slstm_apply(p.rnn, h, state)
+
+
 def _layer(p: Block, cfg: ModelConfig, x, positions,
-           kv_cache: Optional[L.KVCache] = None, use_flash: bool = True):
-    """One layer; prefill without a cache, decode with one.  Returns (x,
-    the layer's new cache or None, its MoE aux loss or 0.0)."""
+           entry: Optional[Dict[str, Any]] = None, use_flash: bool = True):
+    """One layer; prefill without a cache entry, decode with one.  Returns
+    (x, the layer's new entry or None, its MoE aux loss or 0.0)."""
     h = _apply_norm(cfg, p.norm1, x)
-    out, kv_cache = L.attn_apply(p.attn, _attn_cfg(cfg, p.kind), h,
-                                 positions, kv_cache=kv_cache,
-                                 use_flash=use_flash)
+    if p.attn is not None:
+        out, kv = L.attn_apply(p.attn, _attn_cfg(cfg, p.kind), h, positions,
+                               kv_cache=None if entry is None else
+                               entry["kv"], use_flash=use_flash)
+        new = {"kv": kv}
+    else:
+        out, state = _rnn_apply(p, cfg, h,
+                                None if entry is None else entry["state"])
+        new = {"state": state}
     x = x + out
     aux = 0.0
     if p.norm2 is not None:
@@ -269,14 +299,13 @@ def _layer(p: Block, cfg: ModelConfig, x, positions,
         else:
             out2 = L.mlp_apply(p.mlp, h2, cfg.act)
         x = x + out2
-    return x, kv_cache, aux
+    return x, None if entry is None else new, aux
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens, extra):
     if extra is not None:
         raise NotImplementedError(f"{cfg.arch}: no modality frontend in "
-                                  f"repro_torch (ROADMAP.md queue 1: "
-                                  f"cross-attention (encdec, vlm))")
+                                  f"repro_torch ({_NOT_PORTED})")
     x = params.embed[tokens]
     if cfg.norm == "rms":  # sqrt(d_model) rounded to the activation dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -363,24 +392,36 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: Mapping[str, Any],
 # decode
 # ---------------------------------------------------------------------------
 
-def decode_init(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> List[Dict[str, L.KVCache]]:
-    """One entry per layer, ``{"kv": (k_buf, v_buf, length)}``; sliding-
-    window layers keep a ring of ``min(max_len, window)`` slots."""
-    check_supported(cfg)
-    cache = []
-    for kind in cfg.pattern:
+def _entry_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                device) -> Dict[str, Any]:
+    if kind.startswith("attn"):
         acfg = _attn_cfg(cfg, kind)
         eff = min(max_len, cfg.window) if acfg.window else max_len
-        cache.append({"kv": L.kv_cache_init(acfg, batch, eff, cfg.tdtype,
-                                            device)})
-    return cache
+        return {"kv": L.kv_cache_init(acfg, batch, eff, cfg.tdtype, device)}
+    if kind == "rglru":
+        return {"state": L.rglru_state_init(batch, _d_rnn(cfg),
+                                            dtype=cfg.tdtype, device=device)}
+    if kind == "mlstm":
+        return {"state": L.mlstm_state_init(batch, cfg.d_model, cfg.n_heads,
+                                            device)}
+    return {"state": L.slstm_state_init(batch, cfg.d_model, device)}
+
+
+def decode_init(cfg: ModelConfig, batch: int, max_len: int,
+                device="cuda") -> List[Dict[str, Any]]:
+    """One entry per layer: ``{"kv": (k_buf, v_buf, length)}`` for
+    attention (sliding-window layers keep a ring of ``min(max_len,
+    window)`` slots), ``{"state": ...}`` for a recurrence (RG-LRU: the conv
+    tail and h; mLSTM: C and n; sLSTM: h, c, n and m)."""
+    check_supported(cfg)
+    return [_entry_init(cfg, kind, batch, max_len, device)
+            for kind in cfg.pattern]
 
 
 def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
     """tokens: (B, S); position: an int (every token at it) or a (B, S)
-    tensor.  Returns (logits, cache); the cache buffers are updated in
-    place.  MoE layers' aux losses are dropped."""
+    tensor.  Returns (logits, cache); the KV buffers are updated in place,
+    recurrent states replaced.  MoE layers' aux losses are dropped."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, None)
     if isinstance(position, torch.Tensor) and position.dim() > 0:
@@ -389,7 +430,7 @@ def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
         positions = torch.full((B, S), int(position), device=x.device)
     new_cache = []
     for blk, entry in zip(params.blocks, cache):
-        x, kv, _ = _layer(blk, cfg, x, positions, entry["kv"])
-        new_cache.append({"kv": kv})
+        x, entry, _ = _layer(blk, cfg, x, positions, entry)
+        new_cache.append(entry)
     x = _apply_norm(cfg, params.norm_f, x)
     return logits_from_hidden(params, cfg, x), new_cache

@@ -357,6 +357,9 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 1100, 1100, 16, 8, 256, True, 512, 50.0),  # gemma2's head shape
     (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),   # chatglm3-6b's prefill
     (4, 2048, 2048, 16, 8, 64, True, 0, 0.0),    # granite-moe-1b-a400m's
+    # recurrentgemma-2b's local attention: D = 256 (mma), G = 10, window
+    # 2,048 biting at S = 4,096
+    (2, 4096, 4096, 10, 1, 256, True, 2048, 0.0),
     # the wgmma kernel's edges: S and T not multiples of its 128-row
     # tiles, S != T with a softcap, a window without causality, rows that
     # see no key
@@ -458,3 +461,38 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda_device):
                             kv[..., :12].contiguous())
     with pytest.raises(ValueError, match="is on"):
         fak.flash_attention(q, kv.cpu(), kv)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kind", ["rglru", "mlstm", "slstm"])
+def test_recurrent_layer_on_the_card_matches_the_cpu_path(cuda_device, kind,
+                                                          dtype, tol):
+    """One recurrent layer (d_model 256, B = 2, S = 512: two mLSTM chunks)
+    on the card against the port's CPU path on the same weights and input:
+    the output and each leaf of the new state, relative to the largest CPU
+    value.  The recurrences are PyTorch operations (no hand-written
+    kernel); float32 products must not round to TF32."""
+    from repro_torch.models import layers as L
+    D, H = 256, 4
+    gen = torch.Generator().manual_seed(0)
+    if kind == "rglru":
+        params = L.rglru_init(gen, D, int(1.5 * D), H, dtype=dtype,
+                              device="cpu")
+        apply = L.rglru_apply
+    elif kind == "mlstm":
+        params = L.mlstm_init(gen, D, H, dtype, "cpu")
+
+        def apply(p, x):
+            return L.mlstm_apply(p, x, H)
+    else:
+        params = L.slstm_init(gen, D, H, dtype, "cpu")
+        apply = L.slstm_apply
+    x = torch.randn((2, 512, D), generator=gen).to(dtype)
+    want, want_state = apply(params, x)
+    got, got_state = apply({k: v.to(cuda_device) for k, v in params.items()},
+                           x.to(cuda_device))
+    for g, w in zip((got,) + tuple(got_state), (want,) + tuple(want_state)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        err = (g.cpu().float() - w.float()).abs().max() / w.float().abs().max()
+        assert float(err) <= tol
