@@ -83,11 +83,12 @@ call over the same window beside it.
     file's cases, gemma2-9b's head shape (D 256, softcap 50, window
     4,096 at S = 4,608), h2o-danube-3-4b's (D 120), chatglm3-6b's
     prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)), the wgmma
-    kernel's edges (ragged S and T, S != T with a softcap, a window
-    without causality, rows that see no key) and recurrentgemma-2b's
-    prefill (q (2, 4096, 10, 256), k/v (2, 4096, 1, 256), window
-    2,048); every bf16 case the rule
-    sends to the wgmma kernel also runs the old mma kernel.  Times at
+    kernel's edges at D = 64, 128 and 256 (ragged S and T, S != T with a
+    softcap, a window without causality, rows that see no key, 10 query
+    heads on one KV head) and recurrentgemma-2b's prefill (q (2, 4096,
+    10, 256), k/v (2, 4096, 1, 256), window 2,048); every bf16 case the
+    rule sends to the wgmma kernel (D 64, 128 and 256) also runs the old
+    mma kernel.  Times at
     chatglm3-6b's prefill: the wgmma and the mma kernel in turns (new,
     old, old, new), with achieved TFLOP/s and the share of the bound,
     beside ``scaled_dot_product_attention`` (causal, GQA), and the device
@@ -163,16 +164,17 @@ call over the same window beside it.
     bitwise equal to the host rows in bf16; ms per step, gather ms for 8
     ids (half resident) and the promotions' host-to-device GB/s;
 24. ``flash_attention`` at recurrentgemma-2b's prefill shape (q (2, 4096,
-    10, 256), k/v (2, 4096, 1, 256), causal, window 2,048; the mma kernel
+    10, 256), k/v (2, 4096, 1, 256), causal, window 2,048; the wgmma kernel
     at D = 256 with group size 10), as phase 20: against the plain version
-    (bf16 2e-2) and bitwise on a rerun, device times of the kernel and SDPA
-    in turns (SDPA with the window's boolean mask and K/V repeated to the
-    query heads, the kernels it ran recorded), single-call times, the bound
-    and its share;
+    (bf16 2e-2) and bitwise on a rerun, the old mma kernel against the
+    plain version too, device times of the wgmma kernel, the mma kernel
+    and SDPA in turns (wgmma, mma, SDPA, SDPA, mma, wgmma; SDPA with the
+    window's boolean mask and K/V repeated to the query heads, the kernels
+    it ran recorded), single-call times, the bound and its share;
 25. the recurrentgemma-2b serving path at full width and depth (26 layers:
     18 RG-LRU, 8 local attention; random weights from a seed): the
     launch counters set to 0 just before and read just after a prefill of
-    2 x 4,096 tokens (flash_attention exactly 8 times, all on the mma
+    2 x 4,096 tokens (flash_attention exactly 8 times, all on the wgmma
     kernel), prefill ms and tokens/s, last logits against ``FORCE="plain"``
     within ``LM_LOGIT_TOL``, a profiled prefill with device busy against
     the CUDA-event time, the matrix products', flash's and the RG-LRU
@@ -1248,8 +1250,9 @@ LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=512,
 LM_LOGIT_TOL = 3e-2
 
 #: the CPU test file's cases, then gemma2-9b's head shape (window 4,096
-#: bites at 4,608), h2o-danube-3-4b's, chatglm3-6b's prefill, and the edges
-#: of the wgmma kernel
+#: bites at 4,608; the wgmma kernel at D = 256), h2o-danube-3-4b's (the mma
+#: kernel at D = 120), chatglm3-6b's prefill, and the edges of the wgmma
+#: kernel at D = 64, 128 and 256
 FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 128, 128, 4, 4, 64, True, 0, 0.0),
     (2, 256, 256, 8, 2, 64, True, 0, 0.0),
@@ -1272,8 +1275,14 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 1, 64, True, 0, 30.0),
     (1, 640, 640, 8, 8, 128, False, 256, 0.0),
     (1, 192, 64, 4, 2, 128, False, 8, 0.0),
-    # recurrentgemma-2b's local attention (the mma kernel at D = 256, group
-    # size 10, the 2,048-token window biting at S = 4,096)
+    # the same edges at D = 256 (64-key tiles, the output staged through
+    # the single Q buffer), and G = 10 on one KV head without causality
+    (1, 1000, 1000, 8, 1, 256, True, 0, 0.0),
+    (2, 300, 517, 4, 2, 256, True, 0, 50.0),
+    (1, 640, 640, 10, 1, 256, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 256, False, 8, 0.0),
+    # recurrentgemma-2b's local attention (the wgmma kernel at D = 256,
+    # group size 10, the 2,048-token window biting at S = 4,096)
     (2, 4096, 4096, 10, 1, 256, True, 2048, 0.0),
 ]
 #: the main path's shape (chatglm3-6b's prefill), the one timed
@@ -2207,11 +2216,11 @@ MOE_SMOKE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 RNN_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")
 #: recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
 #: attention at D = 256 with 10 query heads on one KV head, window 2,048):
-#: prefill of 2 x 4,096 tokens, so the window bites, flash on the mma
+#: prefill of 2 x 4,096 tokens, so the window bites, flash on the wgmma
 #: kernel; the launcher teacher-forces 4 x 512 tokens, then decodes 32.
 #: The profile reports the RG-LRU scan's share.
 RG = dict(arch="recurrentgemma-2b", batch=2, seq=4096, launch_batch=4,
-          prompt_len=512, new_tokens=32, flash_variant="mma",
+          prompt_len=512, new_tokens=32, flash_variant="wgmma",
           ranges={"rglru_scan": ("repro_torch.models.layers",
                                  "associative_scan")})
 #: flash_attention at recurrentgemma's prefill: q (2, 4096, 10, 256), k/v
@@ -2248,10 +2257,12 @@ STORE = dict(hbm_experts=8, steps=30, slots=4 * 2048 * 8, n_hot=8,
              config=dict(read_hot_threshold=1, sampling_period=100))
 
 
-def phase_flash_shape(arch, case, variant):
+def phase_flash_shape(arch, case, variant, old=None):
     """flash_attention at ``arch``'s prefill shape ``case``: the rule's
     kernel (``variant``) against the plain version and bitwise on a rerun,
     then device times of the kernel and SDPA in turns (kernel, SDPA, SDPA,
+    kernel; with ``old``, the kernel it replaced, forced, is held to the
+    plain version too and timed beside them: kernel, old, SDPA, SDPA, old,
     kernel), single-call times and the bound.  With a window, SDPA takes
     the window's boolean mask and K/V repeated to the query heads (not
     timed), and the kernels it ran (the backend PyTorch picked) are
@@ -2276,6 +2287,15 @@ def phase_flash_shape(arch, case, variant):
     if not torch.equal(got, again):
         fail(f"flash_attention ({variant}, D = {D}) is not bitwise on a "
              f"rerun")
+    if old is not None:
+        old_out = fak.flash_attention(q, k, v, variant=old, **kw)
+        torch.cuda.synchronize()
+        old_err = float((old_out.float() - want.float()).abs().max())
+        if not torch.allclose(old_out.float(), want.float(), atol=2e-2,
+                              rtol=2e-2):
+            fail(f"flash_attention ({old}, D = {D}) differs from its plain "
+                 f"version by {old_err}")
+        del old_out
     qt = q.transpose(1, 2).contiguous()
     if window:
         kt, vt = (x.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
@@ -2298,13 +2318,15 @@ def phase_flash_shape(arch, case, variant):
                                  atol=2e-2, rtol=2e-2):
         fail("the SDPA yardstick does not compute the kernel's function")
     del want, again
-    # device times in turns (kernel, SDPA, SDPA, kernel)
-    turns = {variant: [], "sdpa": []}
+    # device times in turns (kernel, [old,] SDPA, SDPA, [old,] kernel)
+    order = (variant, old, "sdpa") if old else (variant, "sdpa")
+    turns = {name: [] for name in order}
     sdpa_kernels = set()
-    for name in (variant, "sdpa", "sdpa", variant):
-        if name == variant:
-            dev = device_ms(lambda: fak.flash_attention(q, k, v, **kw),
-                            (f"flash_{variant}_kernel",), n=20)
+    for name in order + order[::-1]:
+        if name != "sdpa":
+            dev = device_ms(lambda: fak.flash_attention(q, k, v, variant=name,
+                                                        **kw),
+                            (f"flash_{name}_kernel",), n=20)
         else:
             dev = device_ms(sdpa, None, n=20)
             sdpa_kernels.update(dev["kernels"])
@@ -2326,6 +2348,13 @@ def phase_flash_shape(arch, case, variant):
              "bound_by": bound_by, "flops": flops, "bytes": moved,
              "device_bound_share": bound_ms / device,
              "achieved_tflops": flops / device / 1e9}
+    if old:
+        old_device = statistics.mean(turns[old])
+        stats.update(old_variant=old, old_device_ms=old_device,
+                     old_max_abs_err=old_err,
+                     old_device_bound_share=bound_ms / old_device,
+                     device_vs_old=device / old_device,
+                     device_vs_library=device / library_device)
     print(f"flash_attention at {arch}'s prefill (D = {D}, H = {H}, "
           f"KV = {KV}): " + json.dumps(stats), flush=True)
     return stats
@@ -2539,7 +2568,7 @@ def main() -> int:
     phase_tiered_params()
     gc.collect()
     torch.cuda.empty_cache()
-    flash_rg = phase_flash_shape(RG["arch"], FLASH_RG, "mma")
+    flash_rg = phase_flash_shape(RG["arch"], FLASH_RG, "wgmma", old="mma")
     rg_model, rg_launches, rg_stats = phase_lm_prefill(RG)
     phase_lm_decode(rg_model, RG)
     del rg_model
@@ -2605,7 +2634,10 @@ def main() -> int:
              launches_by_variant=flash_by_variant,
              mma_ms=flash_timing["mma_ms"],
              achieved_tflops=flash_timing["achieved_tflops"],
-             moe_shape=flash_moe, recurrentgemma_shape=flash_rg),
+             moe_shape=flash_moe, recurrentgemma_shape=flash_rg,
+             recurrentgemma_device_ms=flash_rg["device_ms"],
+             recurrentgemma_old_variant=flash_rg["old_variant"],
+             recurrentgemma_old_device_ms=flash_rg["old_device_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

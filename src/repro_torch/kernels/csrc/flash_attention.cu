@@ -13,9 +13,10 @@
 // gives zeros (out = acc / max(l, 1e-30)), as in the TPU kernel.
 //
 // Three kernels compute it; the wrapper's variant(dtype, D) picks one:
-//   wgmma  bfloat16 at D = 64 or 128 (the LM prefill path): a TMA ring and
-//          warp-specialised wgmma;
-//   mma    bfloat16 at any other D up to 256: mma.sync m16n8k16;
+//   wgmma  bfloat16 at D = 64, 128 or 256 (the LM prefill paths): a TMA
+//          ring and warp-specialised wgmma;
+//   mma    bfloat16 at any other D (16, 120): mma.sync m16n8k16, compiled
+//          for every D up to 256;
 //   fma    float32: the FMA units.
 //
 // Common design.  The TPU grid (B * KV, q blocks, kv blocks) runs its kv
@@ -37,20 +38,21 @@
 // (The mma and fma kernels put one block on each query tile; the wgmma
 // kernel walks the same tiles, in the same order, from persistent blocks.)
 //
-// wgmma (bfloat16, D = 64 or 128).  The grid is persistent: one block an
-// SM (its shared memory allows no more), each walking a share of the work
-// items, an item being 128 query rows of one head (heaviest first, the G
-// heads of a KV group neighbours; a block that finishes early takes the
-// heaviest item left, from a counter in device memory).  A block has three
-// warpgroups (384 threads).  Warpgroup 0 is the producer: it gives
-// registers away (setmaxnreg 40) and one of its threads issues every TMA
-// load, item after item: Q into one of two buffers, then K and V in tiles
-// of 128 keys into a ring of 2 stages.  Each stage has a K-full, a V-full,
-// a K-empty and a V-empty mbarrier: K of a tile is given back once S is
-// computed, V one step later, after P V.  So the next item's Q and first
-// tiles load while this item's last tiles run.  Warpgroups 1 and 2 are
-// consumers (setmaxnreg 232), 64 query rows of the item each.  S = Q K^T
-// is wgmma m64n128k16 with both operands in shared memory (K-major);
+// wgmma (bfloat16, D = 64, 128 or 256).  The grid is persistent: one
+// block an SM (its shared memory allows no more), each walking a share of
+// the work items, an item being 128 query rows of one head (heaviest
+// first, the G heads of a KV group neighbours; a block that finishes early
+// takes the heaviest item left, from a counter in device memory).  A block
+// has three warpgroups (384 threads).  Warpgroup 0 is the producer: it
+// gives registers away (setmaxnreg 40) and one of its threads issues every
+// TMA load, item after item: Q into one of two buffers, then K and V in
+// tiles of 128 keys into a ring of 2 stages (D = 256 differs: see below).
+// Each stage has a K-full, a V-full, a K-empty and a V-empty mbarrier: K
+// of a tile is given back once S is computed, V one step later, after P V.
+// So the next item's Q and first tiles load while this item's last tiles
+// run.  Warpgroups 1 and 2 are consumers (setmaxnreg 232), 64 query rows
+// of the item each.  S = Q K^T is wgmma m64n128k16 with both operands in
+// shared memory (K-major);
 // O += P V is wgmma with P (rounded to bf16) in registers and V from
 // shared memory as an MN-major operand (the transpose bit), so V stays in
 // the (keys, D) layout it was read in.  A consumer issues S of tile i and
@@ -69,6 +71,25 @@
 // shared memory (swizzled as the out map is) and leaves by a TMA store
 // that runs on while the next item starts, rows past S not written.
 // Shared memory at D = 128: Q 2 x 32 KB + 2 x (32 + 32) KB + out 32 KB.
+//
+// wgmma at D = 256 (recurrentgemma-2b's local attention, gemma2-9b's
+// heads).  The D = 128 plan would need 448 KB of shared memory (Q 2 x 64
+// KB, K and V 2 x 2 x 64 KB, out 64 KB) against the 227 KB a block may use,
+// and 224 floats of O, S and P a consumer thread (128 + 64 + 32) against
+// setmaxnreg's 232 registers.  So the tile plan is a per-D trait (WgPlan),
+// and at D = 256 it is: key tiles of 64, so S is m64n64k16 (32 float
+// accumulators a thread, 16 registers of bf16 P) and P V is m64n256k16
+// with P from registers (128 accumulators, the widest N wgmma takes):
+// 176 registers of O, S and P under setmaxnreg 240 (the producer keeps
+// 24: 24 * 128 + 240 * 256 = 64,512 of the SM's 65,536; ptxas reports
+// 24 bytes of spill stores at 232 and 4 at 240); one Q buffer, 128
+// rows x 512 B = 64 KB; a K/V ring of 2 stages x (32 + 32) KB; and no
+// output tile of its own: each consumer stages its output through its own
+// 64 rows of the Q buffer after its last S, and the next item's Q loads
+// into the buffer only once both consumers' TMA stores have read it
+// (tma_store_wait_read before the Q-empty arrival).  192 KB and the
+// barriers.  A window of 2,048 and the causal diagonal fall on the 64-key
+// tile edges; Q and every K/V tile are 4 boxes a row.
 //
 // mma (bfloat16, other D): 4 warps, 64 query rows a block, 16 a warp; key
 // tiles of 64.  Q, K and V tiles sit in shared memory (rows padded by 16
@@ -91,9 +112,10 @@
 // key) pair the mask keeps, times B * H; at the serving shape (B 4, S = T =
 // 2048, H 32, KV 2, D 128, causal) that is 1.375e11 flops, 0.139 ms at
 // 989 TFLOP/s bf16, against 142.6 MB of q, k, v and out (0.043 ms at
-// 3.35 TB/s).  The wgmma kernel runs at about 40% of the tensor-core rate
-// there; the softmax between the two products is what it has not hidden
-// (PERF.md has the measurements).
+// 3.35 TB/s); at recurrentgemma-2b's (B 2, S = T = 4096, H 10, KV 1,
+// D 256, causal, window 2,048) 1.289e11 flops, 0.130 ms, against 92.3 MB
+// (0.028 ms).  The softmax between the two products is what the wgmma
+// kernel has not hidden (PERF.md has the measurements).
 //
 // C interface: flash_attention_launch(...) launches on the given stream,
 // allocates nothing, and returns 0 or a CUDA error (negative: a tensor map
@@ -349,36 +371,46 @@ flash_mma_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64 or 128: TMA ring, warp-specialised wgmma
+// bfloat16 at D = 64, 128 or 256: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 constexpr int kWgRows = 64;                      // query rows a consumer
 constexpr int kWgConsumers = 2;                  // consumer warpgroups
 constexpr int kWgBM = kWgRows * kWgConsumers;    // query rows a work item
-constexpr int kWgBN = 128;                       // keys a tile
-constexpr int kWgStages = 2;                     // K/V ring depth
 constexpr int kWgThreads = 128 * (1 + kWgConsumers);
 constexpr int kBoxCols = 64;    // bf16 columns a box: the 128-byte swizzle span
 constexpr int kRowBytes = 128;  // bytes a box row
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 40 * 128 + 232 * 256
-                                                        // = 168 * 384
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block, in bytes from a 1,024-byte aligned base:
-// every tile is D / 64 boxes of (rows x 128 bytes).  Q has two buffers, so
-// the next work item's Q loads while this one runs.
+// The tile plan at head dim D, and the shared memory of one block in bytes
+// from a 1,024-byte aligned base: every tile is D / 64 boxes of (rows x 128
+// bytes).  At D = 64 and 128: key tiles of 128, two Q buffers (the next work
+// item's Q loads while this one runs) and an output tile of its own.  At
+// D = 256 that plan would take 448 KB, so: key tiles of 64, one Q buffer,
+// and the output staged through each consumer's own rows of the Q buffer
+// once its last S has run (the next item's Q then loads after the output's
+// TMA store has read it).
 template <int D>
-struct WgLayout {
+struct WgPlan {
+  static constexpr bool kOutInQ = D > 128;           // the output in Q's rows
+  static constexpr int kBN = kOutInQ ? 64 : 128;     // keys a tile
+  static constexpr int kStages = 2;                  // K/V ring depth
+  static constexpr int kQBufs = kOutInQ ? 1 : 2;     // Q buffers
+  // setmaxnreg's registers a producer and a consumer thread: 128 p + 256 c
+  // = 64,512 = 168 * 384 (at D = 256 ptxas spills 4 bytes at 240, 24 at
+  // 232)
+  static constexpr int kProducerRegs = kOutInQ ? 24 : 40;
+  static constexpr int kConsumerRegs = kOutInQ ? 240 : 232;
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kQBox = kWgBM * kRowBytes;
-  static constexpr int kKBox = kWgBN * kRowBytes;
+  static constexpr int kKBox = kBN * kRowBytes;
   static constexpr int kQBytes = kBoxes * kQBox;
   static constexpr int kKBytes = kBoxes * kKBox;
-  static constexpr int q = 0;                            // 2 Q tiles
-  static constexpr int k = q + 2 * kQBytes;              // kWgStages K tiles
-  static constexpr int v = k + kWgStages * kKBytes;      // kWgStages V tiles
-  static constexpr int o = v + kWgStages * kKBytes;      // the output tile
-  static constexpr int bars = o + kQBytes;
-  static constexpr int items = bars + 8 * (4 + 4 * kWgStages);  // 2 ints
+  static constexpr int q = 0;                            // kQBufs Q tiles
+  static constexpr int k = q + kQBufs * kQBytes;         // kStages K tiles
+  static constexpr int v = k + kStages * kKBytes;        // kStages V tiles
+  static constexpr int o = kOutInQ ? q : v + kStages * kKBytes;  // the output
+  static constexpr int bars = v + kStages * kKBytes + (kOutInQ ? 0 : kQBytes);
+  static constexpr int items = bars + 8 * (2 * kQBufs + 4 * kStages);  // ints
   static constexpr int bytes = items + 8;
 };
 
@@ -419,27 +451,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to, const Args a, int B,
                    int* next_item) {
-  using L = WgLayout<D>;
+  using L = WgPlan<D>;
   constexpr int kSteps = D / 16;       // k16 steps of S = Q K^T
-  constexpr int kPSteps = kWgBN / 16;  // k16 steps of O += P V
-  constexpr int kSAcc = kWgBN / 2;     // S accumulators a thread
+  constexpr int kPSteps = L::kBN / 16;  // k16 steps of O += P V
+  constexpr int kSAcc = L::kBN / 2;     // S accumulators a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bars);  // 2
-  uint64_t* q_empty = q_full + 2;                                 // 2
-  uint64_t* k_full = q_empty + 2;
-  uint64_t* v_full = k_full + kWgStages;
-  uint64_t* k_empty = v_full + kWgStages;
-  uint64_t* v_empty = k_empty + kWgStages;
-  // the item whose Q is in Q buffer 0 or 1, written before its Q load;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* q_empty = q_full + L::kQBufs;
+  uint64_t* k_full = q_empty + L::kQBufs;
+  uint64_t* v_full = k_full + L::kStages;
+  uint64_t* k_empty = v_full + L::kStages;
+  uint64_t* v_empty = k_empty + L::kStages;
+  // the item whose Q is in each Q buffer, written before its Q load;
   // n_items or more when no item is left
   volatile int* item_of_q = reinterpret_cast<volatile int*>(sm + L::items);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < L::kQBufs; ++s) {
       sm90::mbar_init(q_full + s, 1);
       sm90::mbar_init(q_empty + s, kWgConsumers * 128);
     }
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       sm90::mbar_init(k_full + s, 1);
       sm90::mbar_init(v_full + s, 1);
       sm90::mbar_init(k_empty + s, kWgConsumers * 128);
@@ -458,7 +490,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // producer: one thread keeps Q and the K/V ring full, item after item.
     // K and V have their own empty barriers: K of a tile is free once S is
     // computed, V only after P V, one tile later.
-    sm90::setmaxnreg_dec<kProducerRegs>();
+    sm90::setmaxnreg_dec<L::kProducerRegs>();
     if (threadIdx.x == 0) {
       sm90::tma_prefetch(&tq);
       sm90::tma_prefetch(&tk);
@@ -466,8 +498,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       int it = 0;  // K/V tiles loaded so far
       int w = blockIdx.x;
       for (int n = 0;; ++n) {
-        const int qb = n & 1;
-        sm90::mbar_wait(q_empty + qb, ((n >> 1) & 1) ^ 1);
+        // item n's Q buffer; the buffer's n / kQBufs-th use sets the parity
+        const int qb = n & (L::kQBufs - 1);
+        sm90::mbar_wait(q_empty + qb, ((n >> (L::kQBufs - 1)) & 1) ^ 1);
         item_of_q[qb] = w;
         if (w >= n_items) {
           sm90::mbar_arrive(q_full + qb);  // no item left: the consumers stop
@@ -481,20 +514,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sm90::tma_load_4d(sm + L::q + qb * L::kQBytes + c * L::kQBox, &tq,
                             q_full + qb, c * kBoxCols, h, q0, b);
         int lo, hi;
-        tile_range(a, q0, kWgBM, kWgBN, &lo, &hi);
+        tile_range(a, q0, kWgBM, L::kBN, &lo, &hi);
         for (int kt = lo; kt < hi; ++kt, ++it) {
-          const int s = it % kWgStages;
-          const uint32_t free = ((it / kWgStages) & 1) ^ 1;
+          const int s = it % L::kStages;
+          const uint32_t free = ((it / L::kStages) & 1) ^ 1;
           sm90::mbar_wait(k_empty + s, free);
           sm90::mbar_expect_tx(k_full + s, L::kKBytes);
           for (int c = 0; c < L::kBoxes; ++c)
             sm90::tma_load_4d(sm + L::k + s * L::kKBytes + c * L::kKBox, &tk,
-                              k_full + s, c * kBoxCols, kvh, kt * kWgBN, b);
+                              k_full + s, c * kBoxCols, kvh, kt * L::kBN, b);
           sm90::mbar_wait(v_empty + s, free);
           sm90::mbar_expect_tx(v_full + s, L::kKBytes);
           for (int c = 0; c < L::kBoxes; ++c)
             sm90::tma_load_4d(sm + L::v + s * L::kKBytes + c * L::kKBox, &tv,
-                              v_full + s, c * kBoxCols, kvh, kt * kWgBN, b);
+                              v_full + s, c * kBoxCols, kvh, kt * L::kBN, b);
         }
         w = next;
       }
@@ -504,7 +537,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // consumers: warpgroup cw owns query rows q0 + 64 cw .. q0 + 64 cw + 63
   // of each work item
-  sm90::setmaxnreg_inc<kConsumerRegs>();
+  sm90::setmaxnreg_inc<L::kConsumerRegs>();
   const int cw = wg - 1;
   const int ct = threadIdx.x % 128;
   const int warp = ct / 32, lane = ct % 32, g = lane / 4, t4 = lane % 4;
@@ -522,27 +555,33 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t p[kPSteps][4];            // P of the tile whose P V is next
   float c0 = 1.0f, c1 = 1.0f;        // rescale of o before that P V
   const auto phase = [](int i) {
-    return static_cast<uint32_t>((i / kWgStages) & 1);
+    return static_cast<uint32_t>((i / L::kStages) & 1);
   };
-  // S = Q K^T of ring slot i (64 rows x 128 keys), issued, not awaited
+  // S = Q K^T of ring slot i (64 rows x kBN keys), issued, not awaited
   const auto issue_s = [&](int i) {
     const uint32_t k_base =
-        sm90::smem_addr(sm + L::k + (i % kWgStages) * L::kKBytes);
+        sm90::smem_addr(sm + L::k + (i % L::kStages) * L::kKBytes);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the 128-byte row
-      sm90::wgmma_ss_n128(
-          sc, sm90::desc_sw128(q_base + (kk / 4) * L::kQBox + off, 16, 1024),
-          sm90::desc_sw128(k_base + (kk / 4) * L::kKBox + off, 16, 1024), kk > 0);
+      const uint64_t dq =
+          sm90::desc_sw128(q_base + (kk / 4) * L::kQBox + off, 16, 1024);
+      const uint64_t dk =
+          sm90::desc_sw128(k_base + (kk / 4) * L::kKBox + off, 16, 1024);
+      if constexpr (L::kBN == 128) {
+        sm90::wgmma_ss_n128(sc, dq, dk, kk > 0);
+      } else {
+        sm90::wgmma_ss_n64(sc, dq, dk, kk > 0);
+      }
     }
     sm90::wgmma_commit();
   };
-  // O += P V of ring slot i: V (128 keys x D) is MN-major, 8 keys a
+  // O += P V of ring slot i: V (kBN keys x D) is MN-major, 8 keys a
   // 1,024-byte group, 64 columns a box; issued, not awaited
   const auto issue_pv = [&](int i) {
     const uint32_t v_base =
-        sm90::smem_addr(sm + L::v + (i % kWgStages) * L::kKBytes);
+        sm90::smem_addr(sm + L::v + (i % L::kStages) * L::kKBytes);
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) sm90::fence_operand(o[j]);
 #pragma unroll
@@ -555,7 +594,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < kPSteps; ++j) {
       const uint64_t dv =
           sm90::desc_sw128(v_base + j * 16 * kRowBytes, L::kKBox, 8 * kRowBytes);
-      if constexpr (D == 128) {
+      if constexpr (D == 256) {
+        sm90::wgmma_rs_n256(o, p[j], dv);
+      } else if constexpr (D == 128) {
         sm90::wgmma_rs_n128(o, p[j], dv);
       } else {
         sm90::wgmma_rs_n64(o, p[j], dv);
@@ -572,9 +613,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < kSAcc; ++j) sc[j] = a.cap * tanhf(sc[j] * cap_in);
     }
-    if (tile_needs_mask(a, r0, kWgRows, k0, kWgBN)) {
+    if (tile_needs_mask(a, r0, kWgRows, k0, L::kBN)) {
 #pragma unroll
-      for (int j = 0; j < kWgBN / 8; ++j) {
+      for (int j = 0; j < L::kBN / 8; ++j) {
         const int kpos = k0 + 8 * j + 2 * t4;
         if (!visible(a, row0, kpos)) sc[4 * j] = masked();
         if (!visible(a, row0, kpos + 1)) sc[4 * j + 1] = masked();
@@ -584,7 +625,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < kWgBN / 8; ++j) {
+    for (int j = 0; j < L::kBN / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -597,7 +638,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     m1 = mx1;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kWgBN / 8; ++j) {
+    for (int j = 0; j < L::kBN / 8; ++j) {
       sc[4 * j] = ex2(fmaf(sc[4 * j], mult, -b0));
       sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], mult, -b0));
       sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], mult, -b1));
@@ -632,7 +673,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   };
   // a tile these rows do not see: wait for it and give it back
   const auto skip = [&](int i) {
-    const int s = i % kWgStages;
+    const int s = i % L::kStages;
     sm90::mbar_wait(k_full + s, phase(i));
     sm90::mbar_arrive(k_empty + s);
     sm90::mbar_wait(v_full + s, phase(i));
@@ -643,8 +684,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lr = warp * 16 + g;  // local rows lr and lr + 8 share lr % 8
   int it = 0;  // K/V tiles consumed so far
   for (int n = 0;; ++n) {
-    const int qb = n & 1;
-    sm90::mbar_wait(q_full + qb, (n >> 1) & 1);
+    const int qb = n & (L::kQBufs - 1);
+    sm90::mbar_wait(q_full + qb, (n >> (L::kQBufs - 1)) & 1);
     const int w = item_of_q[qb];
     if (w >= n_items) break;
     const int q0 = (n_qt - 1 - w / (B * a.H)) * kWgBM;
@@ -657,8 +698,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // the item's tiles [lo, hi); the ones these 64 rows see, [first,
     // last): a window may skip some of the item's first tiles
     int lo, hi, first, last;
-    tile_range(a, q0, kWgBM, kWgBN, &lo, &hi);
-    tile_range(a, r0, kWgRows, kWgBN, &first, &last);
+    tile_range(a, q0, kWgBM, L::kBN, &lo, &hi);
+    tile_range(a, r0, kWgRows, L::kBN, &first, &last);
     first = min(max(first, lo), hi);
     last = max(first, min(last, hi));
 #pragma unroll
@@ -671,45 +712,50 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (first < last) {
       // the first tile alone; then tile i's S = Q K^T runs beside tile
       // i - 1's P V, and i's softmax overlaps that P V on the tensor cores
-      sm90::mbar_wait(k_full + (base + i) % kWgStages, phase(base + i));
+      sm90::mbar_wait(k_full + (base + i) % L::kStages, phase(base + i));
       issue_s(base + i);
       sm90::wgmma_wait<0>();
-      sm90::mbar_arrive(k_empty + (base + i) % kWgStages);
-      softmax(first * kWgBN);
+      sm90::mbar_arrive(k_empty + (base + i) % L::kStages);
+      softmax(first * L::kBN);
       rescale_and_pack();
       for (++i; lo + i < last; ++i) {
         const int prev = i - 1;
-        sm90::mbar_wait(k_full + (base + i) % kWgStages, phase(base + i));
+        sm90::mbar_wait(k_full + (base + i) % L::kStages, phase(base + i));
         issue_s(base + i);
-        sm90::mbar_wait(v_full + (base + prev) % kWgStages, phase(base + prev));
+        sm90::mbar_wait(v_full + (base + prev) % L::kStages, phase(base + prev));
         issue_pv(base + prev);
         sm90::wgmma_wait<1>();  // S of tile i is in; P V of i - 1 may run on
-        sm90::mbar_arrive(k_empty + (base + i) % kWgStages);
-        softmax((lo + i) * kWgBN);
+        sm90::mbar_arrive(k_empty + (base + i) % L::kStages);
+        softmax((lo + i) * L::kBN);
         sm90::wgmma_wait<0>();
-        sm90::mbar_arrive(v_empty + (base + prev) % kWgStages);
+        sm90::mbar_arrive(v_empty + (base + prev) % L::kStages);
         rescale_and_pack();
       }
       const int prev = i - 1;
-      sm90::mbar_wait(v_full + (base + prev) % kWgStages, phase(base + prev));
+      sm90::mbar_wait(v_full + (base + prev) % L::kStages, phase(base + prev));
       issue_pv(base + prev);
       sm90::wgmma_wait<0>();
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) sm90::fence_operand(o[j]);
-      sm90::mbar_arrive(v_empty + (base + prev) % kWgStages);
+      sm90::mbar_arrive(v_empty + (base + prev) % L::kStages);
     }
     for (; lo + i < hi; ++i) skip(base + i);
 
-    sm90::mbar_arrive(q_empty + qb);  // the item's Q is no longer read
+    if constexpr (!L::kOutInQ) {
+      sm90::mbar_arrive(q_empty + qb);  // the item's Q is no longer read
+    }
     it += hi - lo;
 
     // out = acc / max(l, 1e-30) as bf16, through shared memory (the out
     // map's swizzle: 16-byte chunk c of row r at c ^ (r % 8)) and a TMA
     // store; the previous item's store must have read the tile first
+    // (with the output in Q's rows, it has: see below)
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
-    if (ct == 0) sm90::tma_store_wait_read();
+    if constexpr (!L::kOutInQ) {
+      if (ct == 0) sm90::tma_store_wait_read();
+    }
     sm90::named_barrier(1 + cw, 128);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -726,6 +772,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < L::kBoxes; ++c)
         sm90::tma_store_4d(&to, o_tile + c * L::kQBox, c * kBoxCols, h, r0, b);
       sm90::tma_store_commit();
+    }
+    if constexpr (L::kOutInQ) {
+      // the next item's Q loads over these rows once the store has read them
+      if (ct == 0) sm90::tma_store_wait_read();
+      sm90::mbar_arrive(q_empty + qb);
     }
   }
   if (ct == 0) sm90::tma_store_wait_all();
@@ -855,8 +906,9 @@ int launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream, const Args& a)
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory a block needs (bytes): at D = 256, 101,376 (mma) and
-// 102,784 (fma), within the 227 KB a block may use.
+// Shared memory a block of the mma or fma kernel needs (bytes): at D = 256,
+// 101,376 (mma) and 102,784 (fma), within the 227 KB a block may use.  (The
+// wgmma kernel's is WgPlan<D>::bytes + 1,024: 197,720 at D = 256.)
 size_t smem_bytes(int variant, int D) {
   if (variant == 1) {
     const int ld = ((D + 15) & ~15) + 8;
@@ -918,19 +970,20 @@ bool encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
 template <int D>
 int launch_wgmma(const Args& a, int B, int KV, int* next_item,
                  cudaStream_t stream) {
+  using L = WgPlan<D>;
   CUtensorMap tq, tk, tv, to;
   const long long o_ss = static_cast<long long>(a.H) * D;
   if (!encode_map(&tq, a.q, D, a.H, a.S, B, a.q_sh, a.q_ss, a.q_sb, kWgBM) ||
       !encode_map(&to, a.out, D, a.H, a.S, B, D, o_ss, o_ss * a.S, kWgRows))
     return -1;
   if (a.T > 0) {
-    if (!encode_map(&tk, a.k, D, KV, a.T, B, a.k_sh, a.k_st, a.k_sb, kWgBN) ||
-        !encode_map(&tv, a.v, D, KV, a.T, B, a.v_sh, a.v_st, a.v_sb, kWgBN))
+    if (!encode_map(&tk, a.k, D, KV, a.T, B, a.k_sh, a.k_st, a.k_sb, L::kBN) ||
+        !encode_map(&tv, a.v, D, KV, a.T, B, a.v_sh, a.v_st, a.v_sb, L::kBN))
       return -1;
   } else {
     tk = tv = tq;  // no key tile is loaded
   }
-  const size_t smem = WgLayout<D>::bytes + 1024;  // + alignment slack
+  const size_t smem = L::bytes + 1024;  // + alignment slack
   cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -952,9 +1005,10 @@ int launch_wgmma(const Args& a, int B, int KV, int* next_item,
 
 }  // namespace
 
-// variant: 0 = fma (float32), 1 = mma (bfloat16), 2 = wgmma (bfloat16, D 64
-// or 128).  Strides in elements: (batch, position, head) of q (B, S, H, D)
-// and k/v (B, T, KV, D); the last dim is contiguous, and every stride and
+// variant: 0 = fma (float32), 1 = mma (bfloat16), 2 = wgmma (bfloat16, D 64,
+// 128 or 256: 1 block an SM, 197,720 B of shared memory at D = 256).
+// Strides in elements: (batch, position, head) of q (B, S, H, D) and k/v
+// (B, T, KV, D); the last dim is contiguous, and every stride and
 // base is 16-byte aligned.  out is a contiguous (B, S, H, D).  D is a
 // multiple of 8, at most 256.  next_item: one int32 of device memory that
 // is 0 at launch (the wgmma kernel's work counter; the others ignore it).
@@ -973,6 +1027,7 @@ extern "C" int flash_attention_launch(
     int* counter = static_cast<int*>(next_item);
     if (D == 64) return launch_wgmma<64>(a, B, KV, counter, st);
     if (D == 128) return launch_wgmma<128>(a, B, KV, counter, st);
+    if (D == 256) return launch_wgmma<256>(a, B, KV, counter, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(variant, D);

@@ -4,7 +4,9 @@ Builds copies of ``csrc/flash_attention.cu`` with part of the softmax taken
 out -- ``noexp`` (ex2 is the identity) and ``nosoftmax`` (nothing runs
 between the two products but packing S to bf16) -- and times them beside
 the kernel, the mma kernel and ``scaled_dot_product_attention`` at
-chatglm3-6b's prefill shape, in turns (the list forward, then backward).
+chatglm3-6b's prefill shape (D = 128) and recurrentgemma-2b's (D = 256,
+window 2,048; SDPA given the window's boolean mask and K/V repeated to the
+query heads, not timed), in turns (the list forward, then backward).
 Each time is the card's per call over runs of 10 back-to-back calls (see
 :func:`cuda_ms`), unlike ``chip_smoke.py``'s one call per event pair, which
 also counts the host's launch work.  The ablated copies compute wrong
@@ -38,8 +40,10 @@ ABLATIONS = (
      "    for (int j = 0; j < kSAcc; ++j) sm90::fence_operand(sc[j]);\n"
      "    return;\n"),
 )
-#: q (B, S, H, D) and k/v (B, S, KV, D), bf16, causal: chatglm3-6b's prefill
-SHAPE = (4, 2048, 32, 2, 128)
+#: q (B, S, H, D) and k/v (B, S, KV, D), bf16, causal, and the window: the
+#: prefills of chatglm3-6b and recurrentgemma-2b
+SHAPES = {"chatglm3-6b": (4, 2048, 32, 2, 128, 0),
+          "recurrentgemma-2b": (2, 4096, 10, 1, 256, 2048)}
 
 
 def ablated_source(text: str, old: str, new: str) -> str:
@@ -95,6 +99,55 @@ def cuda_ms(fn, reps: int = 10, per: int = 10, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def time_shape(arch, shape, fns):
+    """The kernel, its ablations, the mma kernel and SDPA at one prefill
+    shape, in turns; ms per call and TFLOP/s of the attended pairs."""
+    B, S, H, KV, D, window = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
+    qt = q.transpose(1, 2).contiguous()
+    kw = dict(causal=True, window=window, logit_softcap=0.0)
+    if window:
+        kt, vt = (x.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+    else:
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+    runs = {
+        "wgmma": lambda: fak.flash_attention(q, k, v, variant="wgmma", **kw),
+        **{name: (lambda fn=fn: fak.launch(fn, q, k, v, "wgmma", **kw))
+           for name, fn in fns.items()},
+        "mma": lambda: fak.flash_attention(q, k, v, variant="mma", **kw),
+        "sdpa": sdpa,
+    }
+    turns = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        turns[name].append(cuda_ms(runs[name]))
+    pos = torch.arange(S)
+    keep = pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
+    flops = 4 * D * int(keep.sum()) * B * H
+    ms = {name: statistics.mean(t) for name, t in turns.items()}
+    return {"arch": arch,
+            "shape": {"q": [B, S, H, D], "kv": [B, S, KV, D],
+                      "causal": True, "window": window},
+            "ms": ms, "turns_ms": turns,
+            "tflops": {n: flops / t / 1e9 for n, t in ms.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_ablation: needs a CUDA card", file=sys.stderr)
@@ -105,31 +158,9 @@ def main() -> int:
         timeout=60).stdout.strip()
     fak._kernel()
     fns = build_ablations()
-    B, S, H, KV, D = SHAPE
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((B, S, H, D), generator=g, device="cuda").bfloat16()
-    k = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
-    v = torch.randn((B, S, KV, D), generator=g, device="cuda").bfloat16()
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kw = dict(causal=True, window=0, logit_softcap=0.0)
-    runs = {
-        "wgmma": lambda: fak.flash_attention(q, k, v, variant="wgmma"),
-        **{name: (lambda fn=fn: fak.launch(fn, q, k, v, "wgmma", **kw))
-           for name, fn in fns.items()},
-        "mma": lambda: fak.flash_attention(q, k, v, variant="mma"),
-        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True),
-    }
-    turns = {name: [] for name in runs}
-    for name in list(runs) + list(runs)[::-1]:
-        turns[name].append(cuda_ms(runs[name]))
-    flops = 4 * D * (S * (S + 1) // 2) * B * H
-    ms = {name: statistics.mean(t) for name, t in turns.items()}
     print(card)
-    print(json.dumps({"shape": {"q": [B, S, H, D], "kv": [B, S, KV, D],
-                                "causal": True},
-                      "ms": ms, "turns_ms": turns,
-                      "tflops": {n: flops / t / 1e9 for n, t in ms.items()}}))
+    for arch, shape in SHAPES.items():
+        print(json.dumps(time_shape(arch, shape, fns)), flush=True)
     return 0
 
 

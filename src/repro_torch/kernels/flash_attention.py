@@ -11,14 +11,21 @@ device.
 Three kernels compute the same function, and :func:`pick_variant` picks one
 from the dtype and head dim:
 
-* ``"wgmma"``: bfloat16 at D = 64 or 128, the LM prefill path.  Persistent
-  blocks; in each, a TMA ring of K/V tiles filled by a producer warp and
-  two consumer warpgroups running ``wgmma`` with the online softmax in
-  registers, overlapped with the previous tile's P V.  Bound by operations
-  (4 * D flops per attended (query, key) pair, on the tensor cores at 989
-  TFLOP/s bf16 on an H100 SXM); its time beside that bound is in PERF.md.
-* ``"mma"``: bfloat16 at any other D (16, h2o-danube-3-4b's 120, gemma2's
-  256), ``mma.sync`` with synchronous tile loads.
+* ``"wgmma"``: bfloat16 at D = 64, 128 or 256, the LM prefill paths
+  (chatglm3-6b at 128, granite-moe at 64, recurrentgemma-2b's local
+  attention and gemma2-9b at 256).  Persistent blocks; in each, a TMA ring
+  of K/V tiles filled by a producer warp and two consumer warpgroups of 64
+  query rows running ``wgmma`` with the online softmax in registers,
+  overlapped with the previous tile's P V.  The tile plan depends on D: at
+  64 and 128, key tiles of 128 and two Q buffers; at 256, key tiles of 64
+  (S in 32 float registers a thread, O in 128), one 64 KB Q buffer through
+  which each consumer also stages its output, and a 2-stage ring of 32 KB
+  K and V tiles, 197,720 bytes of shared memory in all.  Bound by
+  operations (4 * D flops per attended (query, key) pair, on the tensor
+  cores at 989 TFLOP/s bf16 on an H100 SXM); its time beside that bound is
+  in PERF.md.
+* ``"mma"``: bfloat16 at any other D (16, h2o-danube-3-4b's 120),
+  ``mma.sync`` with synchronous tile loads; compiled for every D up to 256.
 * ``"fma"``: float32 on the FMA units (tensor cores would round to TF32).
 
 The wrapper takes CUDA tensors only and launches a kernel or raises: q
@@ -49,7 +56,7 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: the kernels, by the code the C launcher takes
 VARIANTS = {"fma": 0, "mma": 1, "wgmma": 2}
 #: head dims the wgmma kernel is compiled for
-WGMMA_D = (64, 128)
+WGMMA_D = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 256
 #: grid dims y (batch) and z (query tiles) are at most 65,535
@@ -81,7 +88,9 @@ def _kernel():
 
 
 def pick_variant(dtype: torch.dtype, D: int) -> str:
-    """The kernel that computes attention for ``dtype`` at head dim ``D``."""
+    """The kernel that computes attention for ``dtype`` at head dim ``D``:
+    ``fma`` for float32; for bfloat16, ``wgmma`` at D in :data:`WGMMA_D`
+    (64, 128, 256) and ``mma`` at any other D (16, 120, ...)."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:

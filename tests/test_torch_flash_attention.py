@@ -9,8 +9,9 @@ tensors; the CUDA kernel is held against this plain version on a card by
 Tolerances are ``tests/test_kernels.py``'s: float32 within 2e-5 (float32
 sums in another order), bfloat16 within 2e-2 (one bf16 rounding of the
 output, 2**-8 relative, on values of order 1).  The cases are that file's
-sweep plus a head dim of 120, query and key lengths that are not a multiple
-of the tile, S != T, a window without causality, and rows that see no key.
+sweep plus a head dim of 120, recurrentgemma-2b's head layout scaled down,
+query and key lengths that are not a multiple of the tile, S != T, a window
+without causality, and rows that see no key.
 Where T is not a multiple of the Pallas kernel's key block (128, or T when
 T is smaller), the Pallas kernel in interpret mode reads NaN past the end
 of k and v and returns NaN everywhere; those cases are held to the jnp ref
@@ -43,6 +44,9 @@ CASES = [
     (2, 128, 128, 4, 4, 64, False, 0, 0.0, "float32"),
     (1, 256, 256, 2, 2, 256, True, 0, 50.0, "float32"),
     (1, 128, 128, 4, 4, 64, True, 0, 0.0, "bfloat16"),
+    # recurrentgemma-2b's head layout (D = 256, 10 query heads on one KV
+    # head, a window), scaled down
+    (1, 384, 384, 10, 1, 256, True, 128, 0.0, "bfloat16"),
     (1, 96, 96, 4, 2, 120, True, 0, 0.0, "float32"),     # D = 120
     (1, 96, 96, 4, 2, 120, True, 0, 0.0, "bfloat16"),
     (1, 200, 256, 4, 2, 32, True, 0, 0.0, "float32"),    # S % 128 != 0
@@ -166,7 +170,7 @@ def test_kernel_is_built_from_its_source_and_names_the_tpu_kernel():
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 120, "mma"),     # h2o-danube-3-4b
     (torch.bfloat16, 16, "mma"),      # the smoke configs
-    (torch.bfloat16, 256, "mma"),     # gemma2-9b
+    (torch.bfloat16, 256, "wgmma"),   # gemma2-9b, recurrentgemma-2b
     (torch.float32, 128, "fma"),
     (torch.float32, 120, "fma"),
 ])
@@ -199,7 +203,7 @@ def test_launches_by_variant_reset_with_the_other_counters():
     (torch.float32, 128, "wgmma", "does not take"),
     (torch.float32, 64, "mma", "does not take"),
     (torch.bfloat16, 120, "wgmma", "head dims"),
-    (torch.bfloat16, 256, "wgmma", "head dims"),
+    (torch.bfloat16, 192, "wgmma", "head dims"),
 ])
 def test_kernel_wrapper_refuses_a_bad_variant(dtype, D, variant, match):
     q = torch.zeros((1, 8, 4, D), dtype=dtype)

@@ -357,7 +357,7 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 1100, 1100, 16, 8, 256, True, 512, 50.0),  # gemma2's head shape
     (4, 2048, 2048, 32, 2, 128, True, 0, 0.0),   # chatglm3-6b's prefill
     (4, 2048, 2048, 16, 8, 64, True, 0, 0.0),    # granite-moe-1b-a400m's
-    # recurrentgemma-2b's local attention: D = 256 (mma), G = 10, window
+    # recurrentgemma-2b's local attention: D = 256 (wgmma), G = 10, window
     # 2,048 biting at S = 4,096
     (2, 4096, 4096, 10, 1, 256, True, 2048, 0.0),
     # the wgmma kernel's edges: S and T not multiples of its 128-row
@@ -367,6 +367,12 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 1, 64, True, 0, 30.0),
     (1, 640, 640, 8, 8, 128, False, 256, 0.0),
     (1, 192, 64, 4, 2, 128, False, 8, 0.0),
+    # the same edges at D = 256 (its 64-key tiles and single Q buffer),
+    # and G = 10 on one KV head without causality
+    (1, 1000, 1000, 8, 1, 256, True, 0, 0.0),
+    (2, 300, 517, 4, 2, 256, True, 0, 50.0),
+    (1, 640, 640, 10, 1, 256, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 256, False, 8, 0.0),
 ]
 
 
@@ -398,7 +404,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, tol, B, S,
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap",
-                         [c for c in FLASH_CASES if c[5] in (64, 128)])
+                         [c for c in FLASH_CASES if c[5] in (64, 128, 256)])
 def test_flash_attention_mma_kernel_where_the_rule_picks_wgmma(
         cuda_device, B, S, T, H, KV, D, causal, window, cap):
     """The old bf16 kernel stays right at the head dims the wgmma kernel
@@ -430,7 +436,7 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_wgmma_kernel_reads_strided_views(cuda_device, D):
     """The wgmma kernel's tensor maps over views: q, k and v sliced out of
     one fused (B, S, H + 2 KV, D) projection, and a batch that is a
