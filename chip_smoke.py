@@ -13,7 +13,10 @@ median of 30; the wrapper's host work counts), and device time
 (``device_ms``): 100 calls back to back under ``torch.profiler``, the
 device time of the kernel's own launches per call (the median recorded
 launch; ``device_mean_ms`` the mean), with the host's microseconds per
-call over the same window beside it.
+call over the same window beside it.  Each window opens with 2,048 tiny
+filler kernels, which take the records the profiler loses at the head
+of some windows; a window that lost all of them is taken again (the
+counts are printed at the end).
 
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
@@ -44,13 +47,37 @@ call over the same window beside it.
 5. the main path of the tuning loop: ``Study.tune`` (hemem, budget 16,
    batch 8, crn) with the launch counters set to 0 just before and read
    just after (180 launches, all on the cluster kernel);
-6. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
+6. the paper's Bayesian-optimisation surface on the card: (a)
+   ``ops.topk_mask`` (the acquisition's top-q, the promote side of
+   ``select_topk`` on one row) against its plain version, bitwise and on a
+   rerun, at n in {40, 96, 512, 1,024, 1,536} with heavy ties, valid masks
+   and k in {0, 1, 5, 40, n}, both kernels forced at 1,536; the block
+   kernel's device time at (1, 512) beside the single call, the plain
+   version and ``torch.topk``; (b) ``Study.tune(budget=100, batch_size=4,
+   seed=0)`` of hemem on the GUPS deployment above with the launch
+   counters set to 0 just before and read just after (one block launch
+   per model round, 60 cluster launches per ``Study.run`` pass), every
+   model round's card selection against ``suggest_topq`` pinned to numpy
+   on the same forest, pool and valid mask as the card reads them
+   (thresholds and pool rounded to float32: ``as_read_in_float32``), equal
+   but for swaps of EIs within 1e-5 relative, counted; the rounds where
+   plain float64 numpy selects otherwise, through candidates on a split
+   point, counted too; acquisition ms per round card against numpy, the
+   ask and the tuning wall without the numpy shadow's time; (c) Fig. 2:
+   each of the paper's eight workloads tuned (hemem,
+   ``sampler="sparse"``, budget 40, q 4, seed 3), then
+   ``sweep(configs=[default, best])`` bitwise equal to ``Study.run`` of
+   the same configs, the improvement beside the paper's band and
+   ``knob_importance``'s top three knobs; (d) a sweep of hemem, memtis and
+   hmsdk over gups and gapbs-pr, the reference's cell keys, each cell
+   bitwise equal to its own ``Study.run``;
+7. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
    917,504-byte rows); single-call and device times of the kernel, the
    plain version and ``index_select`` + ``index_copy_`` at the serving
    shape;
-7. ``paged_attention`` against its plain version (f32 within 1e-5, bf16
+8. ``paged_attention`` against its plain version (f32 within 1e-5, bf16
    and f16 within 1e-2) and bitwise on a rerun: G in {1, 2, 4, 16, 32},
    lengths 0, partial and full, -1 table entries, the strided layer-0
    view; each case through the rule's kernel and, where the rule picks the
@@ -61,7 +88,7 @@ call over the same window beside it.
    ``scaled_dot_product_attention`` on the resident K/V gathered into a
    dense tensor (the gather not timed); and a long-context shape where
    the plan splits;
-8. the main path of serving: ``replay`` at chatglm3-6b's KV width (28
+9. the main path of serving: ``replay`` at chatglm3-6b's KV width (28
    layers, 2 KV heads of 128, 32 query heads, bf16, 64-token pages), 64
    sequence slots of 32 pages, 256 HBM pages, 1,024 steps of
    bursty-diurnal traffic, an engine epoch every 8 steps, with the launch
@@ -72,13 +99,13 @@ call over the same window beside it.
    bitwise equal in residency and migrations, outputs within 1e-2; decode
    ms per step timed in turns (kernels, plain, plain, kernels); then a
    profiled 256-step replay for each kernel's share of device time;
-9. a small spec on the card and on the port's CPU path: residency and
+10. a small spec on the card and on the port's CPU path: residency and
    migrations bitwise;
-10. ``Study.run`` of kv-hemem on kv-poisson on the card, within the
+11. ``Study.run`` of kv-hemem on kv-poisson on the card, within the
     cross-device tolerance of the CPU path;
-11. the serving tuning loop: ``Study.tune(budget=8, objective=serving
+12. the serving tuning loop: ``Study.tune(budget=8, objective=serving
     objective)`` over 256-step replays at the same width;
-12. after freeing the serving pools, ``flash_attention`` against its
+13. after freeing the serving pools, ``flash_attention`` against its
     plain version (f32 within 2e-5, bf16 within 2e-2) on the CPU test
     file's cases, gemma2-9b's head shape (D 256, softcap 50, window
     4,096 at S = 4,608), h2o-danube-3-4b's (D 120), chatglm3-6b's
@@ -93,29 +120,29 @@ call over the same window beside it.
     old, old, new), with achieved TFLOP/s and the share of the bound,
     beside ``scaled_dot_product_attention`` (causal, GQA), and the device
     times of both kernels and SDPA;
-13. the LM main path: ``build_prefill_step`` at chatglm3-6b's full width
+14. the LM main path: ``build_prefill_step`` at chatglm3-6b's full width
     on 4 x 2,048 tokens with the launch counters set to 0 just before and
     read just after (flash_attention exactly once per layer, 28, every
     one on the wgmma kernel), prefill ms and tokens/s, last logits
     against ``FORCE="plain"``, and a profiled prefill for the kernel's
     share of device time;
-14. the port's launcher (``--arch chatglm3-6b --full --batch 4
+15. the port's launcher (``--arch chatglm3-6b --full --batch 4
     --prompt-len 512 --new-tokens 32``): ms per generated token, no
     kernel launched by decode, and its logits after teacher-forcing the
     prompt against prefill's last-position logits on the same prompt
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
-15. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
+16. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
     recurrentgemma-2b and xlstm-1.3b smoke configs at S = 512 on the card
     against the port's CPU path; the
     MoE configs' card runs routed as the CPU routed (``Routing``), each
     router's own choice equal to the CPU's but at near ties;
-16. ``select_topk`` past the old 65,535-page ceiling: both kernels
+17. ``select_topk`` past the old 65,535-page ceiling: both kernels
     bitwise against the plain version and on a rerun at n in {65,536,
     100,003, ``MAX_N``}, B in {1, 8}, with ties and k in {0, 1, n}; then
     ``Study.run`` of hemem on gapbs-bc kron at scale 1.7 (68,004 pages,
     120 epochs), B = 8, ``crn=True``: bitwise equal to ``FORCE="plain"``,
     the cluster kernel once per epoch;
-17. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
+18. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
     the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, recurrentgemma-2b
     and xlstm-1.3b smoke configs (the MoE layers' index ops, the RG-LRU
     scan, the mLSTM chunks and the sLSTM loop under autograd) from the
@@ -123,24 +150,24 @@ call over the same window beside it.
     ``SyntheticLM`` batches, losses and grad norms within ``TRAIN_TOL``,
     no kernel launched; ``flash_attention`` under autograd on the card
     raises;
-18. LM training at chatglm3-6b's full width and depth through the
+19. LM training at chatglm3-6b's full width and depth through the
     launcher's trainer (``--full --batch 4 --seq 512``, AdamW by its rule,
     no checkpoint written): 6 steps with finite losses and grad norms, the
     weights moved, no flash launch, the first loss against ``loss_fn``
     under ``no_grad`` within 1e-3; per step loss, grad norm, ms,
     tokens/s and peak memory; then 3 Adafactor steps after the AdamW state
     is freed;
-19. a checkpoint restart on the card at the smoke config: 20 steps
+20. a checkpoint restart on the card at the smoke config: 20 steps
     straight against 10, a restart and 10, the losses after the restart
     bitwise equal;
-20. ``flash_attention`` at granite-moe-1b-a400m's prefill shape (q (4,
+21. ``flash_attention`` at granite-moe-1b-a400m's prefill shape (q (4,
     2048, 16, 64), k/v (4, 2048, 8, 64), causal; the wgmma kernel at D = 64
     with group size 2): against the plain version (bf16 2e-2) and bitwise
     on a rerun, device times of the kernel and SDPA in turns (kernel,
     SDPA, SDPA, kernel), single-call times, the bound and its share;
-21. the MoE serving path: ``build_prefill_step`` at granite-moe-1b-a400m's
+22. the MoE serving path: ``build_prefill_step`` at granite-moe-1b-a400m's
     full width and depth (24 layers, 32 experts, top-8; random weights from
-    a seed) on 4 x 2,048 tokens, as phase 13: the launch counters set to 0
+    a seed) on 4 x 2,048 tokens, as phase 14: the launch counters set to 0
     just before and read just after (flash_attention exactly 24 times, all
     on the wgmma kernel), prefill ms and tokens/s, last logits against
     ``FORCE="plain"`` within ``LM_LOGIT_TOL``, and a profiled prefill with
@@ -148,13 +175,13 @@ call over the same window beside it.
     products' share, the share of the MoE dispatch and combine (sorts,
     index scatters and gathers) and the share of slots the capacity rule
     drops;
-22. the launcher at granite's full width (``--arch granite-moe-1b-a400m
-    --full --batch 4 --prompt-len 512 --new-tokens 32``), as phase 14: ms
+23. the launcher at granite's full width (``--arch granite-moe-1b-a400m
+    --full --batch 4 --prompt-len 512 --new-tokens 32``), as phase 15: ms
     per token, no kernel launched by decode, logits after the prompt
     against the last-position logits of each sequence prefilled alone
     (512 x 8 slots: dropless, as decode is) within ``LM_LOGIT_TOL``; the
     batch prefill's dropped-slot share and distance reported beside;
-23. ``TieredParamStore`` over one granite layer's 32 experts at full width
+24. ``TieredParamStore`` over one granite layer's 32 experts at full width
     (6.29 MB a host expert in float32, 8 experts in a bf16 pool on the
     card), the reference test's engine config: 30 steps of ``route`` (the
     65,536 slots of a 4 x 2,048 prefill at top-8, 8 hot experts among
@@ -163,15 +190,15 @@ call over the same window beside it.
     CPU after every step, the hot set resident at the end, ``gather``
     bitwise equal to the host rows in bf16; ms per step, gather ms for 8
     ids (half resident) and the promotions' host-to-device GB/s;
-24. ``flash_attention`` at recurrentgemma-2b's prefill shape (q (2, 4096,
+25. ``flash_attention`` at recurrentgemma-2b's prefill shape (q (2, 4096,
     10, 256), k/v (2, 4096, 1, 256), causal, window 2,048; the wgmma kernel
-    at D = 256 with group size 10), as phase 20: against the plain version
+    at D = 256 with group size 10), as phase 21: against the plain version
     (bf16 2e-2) and bitwise on a rerun, the old mma kernel against the
     plain version too, device times of the wgmma kernel, the mma kernel
     and SDPA in turns (wgmma, mma, SDPA, SDPA, mma, wgmma; SDPA with the
     window's boolean mask and K/V repeated to the query heads, the kernels
     it ran recorded), single-call times, the bound and its share;
-25. the recurrentgemma-2b serving path at full width and depth (26 layers:
+26. the recurrentgemma-2b serving path at full width and depth (26 layers:
     18 RG-LRU, 8 local attention; random weights from a seed): the
     launch counters set to 0 just before and read just after a prefill of
     2 x 4,096 tokens (flash_attention exactly 8 times, all on the wgmma
@@ -182,7 +209,7 @@ call over the same window beside it.
     --new-tokens 32``): ms per token, no kernel launched by decode, prompt
     logits against prefill's last-position logits within
     ``LM_LOGIT_TOL``;
-26. the xlstm-1.3b serving path at full width and depth (48 layers: 42
+27. the xlstm-1.3b serving path at full width and depth (48 layers: 42
     mLSTM, 6 sLSTM): a prefill of 4 x 2,048 tokens launching no kernel,
     finite logits bitwise equal on a rerun, prefill ms and tokens/s, a
     profiled prefill with the sLSTM loop's and the mLSTM chunks' device
@@ -191,11 +218,11 @@ call over the same window beside it.
     reference's mLSTM clamps within a chunk only) within
     ``LM_LOGIT_TOL``, the distance to the ordinary prefill reported
     beside;
-27. one layer of each recurrent kind at full width (RG-LRU at d_model
+28. one layer of each recurrent kind at full width (RG-LRU at d_model
     2,560, mLSTM and sLSTM at 2,048; B = 1, S = 512) on the card against
     the port's CPU path: output and state within 1e-4 (float32) and 3e-2
     (bf16) of the largest CPU value, card ms per call;
-28. one JSON line per the kernel table, the card line again, and as the
+29. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -259,6 +286,18 @@ def kernel_launch_us(prof, names=None):
     return out
 
 
+#: tiny kernels (``torch.cuda._sleep(1)``, ATen's ``spin_kernel``)
+#: launched at the head of every ``device_ms`` window.  The profiler loses
+#: the first records of some windows, more late in a long process (idle
+#: time before the first launch does not help, nor does a warmup cycle;
+#: the last records are kept); the filler takes that loss instead of the
+#: timed launches, and a window that lost all of it is taken again
+FILLER, FILLER_NAME = 2048, "spin"
+#: filler records lost per ``device_ms`` window, in order, windows taken
+#: again included (printed at the end)
+HEAD_LOSS = []
+
+
 def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
     """Device time per call of ``fn()``: ``n`` calls back to back under
     ``torch.profiler`` (CUDA activity); for each kernel whose name
@@ -266,9 +305,11 @@ def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
     recorded launches times the launches a call makes, summed
     (``device_ms``), and the same with the mean of its recorded launches
     (``device_mean_ms``), so a slow tail shows as the gap between the two.
-    Per recorded launch, not the window's sum over ``n``: a window may
-    miss a launch.  ``between()``, if given, runs before
-    each call and is not counted unless its kernels match ``names``.  Also
+    The window opens with :data:`FILLER` filler kernels (not counted); one
+    in which the profiler lost all of them, so that its loss may reach the
+    timed launches, is taken again, up to four times.  ``between()``, if
+    given, runs before each call and is not counted unless its kernels
+    match ``names``.  Also
     the host's microseconds per call over the same window (the loop's
     clock, so the wrapper's checks, allocations and launch, and
     ``between``), and the matched launches recorded per call."""
@@ -279,15 +320,29 @@ def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
             between()
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            if between is not None:
-                between()
-            fn()
-        host_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-    launches = kernel_launch_us(prof, names)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(FILLER):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()      # the timed loop waits on no filler
+            t0 = time.perf_counter()
+            for _ in range(n):
+                if between is not None:
+                    between()
+                fn()
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        filler = kernel_launch_us(prof, (FILLER_NAME,))
+        kept = sum(len(t) for t in filler.values())
+        HEAD_LOSS.append(FILLER - kept)
+        if kept:
+            break
+        print(f"device_ms: the profiler lost all {FILLER} filler launches "
+              f"of a window timing {names}; taking it again", flush=True)
+    else:
+        fail(f"the profiler lost the head of five windows timing {names}")
+    launches = {k: t for k, t in kernel_launch_us(prof, names).items()
+                if k not in filler}
     if not launches:
         fail(f"the profiler saw no launch of {names}")
     per_call = [max(1, round(len(t) / n)) for t in launches.values()]
@@ -626,6 +681,350 @@ def phase_tune():
           f"{wall_s:.3f} s, select_topk launches {json.dumps(by_variant)}",
           flush=True)
     return launches, by_variant
+
+
+# ---------------------------------------------------------------------------
+# the paper's Bayesian-optimisation surface: the acquisition on the card
+# ---------------------------------------------------------------------------
+
+#: the acquisition's pool: SMAC's 512 candidates a model round (one row)
+ACQ_N = 512
+#: the paper's benchmark suite with default inputs (Table 4), as
+#: ``benchmarks/common.py`` lists it
+SUITE = [
+    ("gapbs-bc", "kron"), ("gapbs-pr", "kron"), ("gapbs-cc", "kron"),
+    ("silo", "ycsb-c"), ("btree", ""), ("xsbench", ""),
+    ("gups", "8GiB-hot"), ("graph500", "kron"),
+]
+#: how far two float32 EIs may lie apart, relative, for the card's and the
+#: numpy path's selections to swap them (the card computes in float32 with
+#: the exact erf, numpy in float64 with the Abramowitz-Stegun erf)
+EI_SWAP_RTOL = 1e-5
+
+
+def as_read_in_float32(forest, X):
+    """The forest's thresholds and the pool rounded to float32 and back:
+    what the card's (and the reference's jitted) descent compares.  A
+    threshold halfway between two observed grid values of an integer knob
+    is itself a grid value in exact arithmetic (the split between 6 and 8
+    is 7), but float64 may round it one ulp below the candidate's 7, which
+    then goes right where float32, seeing them equal, sends it left."""
+    import dataclasses
+    import numpy as np
+
+    def f32(a):
+        return a.astype(np.float32).astype(np.float64)
+
+    return dataclasses.replace(forest, threshold=f32(forest.threshold)), \
+        f32(X)
+
+
+def topk_mask_args(scores, k, valid):
+    """The ``select_topk`` kernel inputs ``ops.topk_mask`` builds: the
+    promote side over one row of scores, no demote side."""
+    import torch
+    return [valid.reshape(1, -1), scores.reshape(1, -1), None, None,
+            torch.full((1,), float(k), device=scores.device), None]
+
+
+def phase_topk_mask():
+    """``ops.topk_mask`` (the acquisition's top-q) on the card against its
+    plain version, then its times at the acquisition's (1, 512)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref, select_topk as sk
+    rng = np.random.default_rng(20)
+    n_cases = 0
+    for n in (40, 96, ACQ_N, 1024, 1536):
+        ei = rng.uniform(0, 1, n).astype(np.float32)
+        ei[::4] = ei[1]                            # heavy ties
+        scores = torch.from_numpy(ei).cuda()
+        valid = torch.from_numpy(rng.uniform(size=n) < 0.8).cuda()
+        for k in sorted({0, 1, 5, 40, n}):
+            for v in (valid, None):
+                ops.FORCE = "plain"
+                try:
+                    want = ops.topk_mask(scores, k, v)
+                finally:
+                    ops.FORCE = None
+                got = ops.topk_mask(scores, k, v)
+                again = ops.topk_mask(scores, k, v)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"topk_mask differs from its plain version at "
+                         f"n={n}, k={k}")
+                if not torch.equal(got, again):
+                    fail(f"topk_mask is not bitwise equal on a rerun at "
+                         f"n={n}, k={k}")
+                if n > sk.BLOCK_MAX_N:   # both kernels at a cluster shape
+                    mask = torch.ones_like(valid) if v is None else v
+                    args = topk_mask_args(scores, k, mask)
+                    for variant in sk.VARIANTS:
+                        pm, _ = sk.select_topk(*args, variant=variant)
+                        if not torch.equal(pm[0], want):
+                            fail(f"topk_mask's {variant} kernel differs at "
+                                 f"n={n}, k={k}")
+                n_cases += 1
+    print(f"topk_mask: {n_cases} cases (n in 40..1,536, heavy ties, valid "
+          f"masks, k in {{0, 1, 5, 40, n}}) bitwise equal to the plain "
+          f"version and on reruns; block and cluster forced equal at "
+          f"n = 1,536", flush=True)
+
+    # times at the acquisition's shape: one 512-candidate row, q = 4
+    ei = rng.uniform(0, 1, ACQ_N).astype(np.float32)
+    scores = torch.from_numpy(ei).cuda()
+    valid = torch.from_numpy(rng.uniform(size=ACQ_N) < 0.95).cuda()
+    k = 4
+    args = topk_mask_args(scores, k, valid)
+    if sk.pick_variant(1, ACQ_N) != "block":
+        fail("the rule does not pick the block kernel at the acquisition's "
+             "shape")
+    dev = device_ms(lambda: sk.select_topk(*args, variant="block"),
+                    TOPK_NAMES["block"])
+    kernel_ms = cuda_ms(lambda: ops.topk_mask(scores, k, valid))
+
+    def plain():
+        ops.FORCE = "plain"
+        try:
+            return ops.topk_mask(scores, k, valid)
+        finally:
+            ops.FORCE = None
+
+    plain_ms = cuda_ms(plain)
+    vp, _ = ref.pack_keys(args[0], args[1], torch.zeros_like(args[0]),
+                          torch.zeros_like(args[1]))
+    idx = torch.arange(ACQ_N, device="cuda", dtype=torch.int64)
+    packed = vp[0] << 17 | (ACQ_N - idx)
+    library_ms = cuda_ms(lambda: torch.topk(packed, k))
+    library_dev = device_ms(lambda: torch.topk(packed, k), None)
+    # what topk_mask needs: the scores, the valid mask, the count and the
+    # output mask (the kernel reads and writes no demote side)
+    moved = ACQ_N * (4 + 1 + 1) + 4
+    out = {"shape": [1, ACQ_N], "k": k, "variant": "block",
+           "device_ms": dev["device_ms"],
+           "device_mean_ms": dev["device_mean_ms"],
+           "host_us": dev["host_us"], "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_dev["device_ms"],
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bound_bytes": moved}
+    print(f"topk_mask at (1, {ACQ_N}), k = {k}: block kernel device "
+          f"{out['device_ms']:.6f} ms (mean of launches "
+          f"{out['device_mean_ms']:.6f}; host {out['host_us']:.1f} us a "
+          f"call), single call {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.topk {library_ms:.4f} ms (device "
+          f"{out['library_device_ms']:.6f}), bound {out['bound_ms']:.7f} ms "
+          f"({moved} bytes)", flush=True)
+    return out
+
+
+def same_but_near_swaps(sel, sel_np, ei_np):
+    """True if the card's selection equals numpy's but for positions whose
+    two candidates' float32 EIs (numpy's) lie within ``EI_SWAP_RTOL``."""
+    if len(sel) != len(sel_np):
+        return False
+    for a, b in zip(sel, sel_np):
+        if a != b:
+            x, y = float(ei_np[a]), float(ei_np[b])
+            if abs(x - y) > EI_SWAP_RTOL * max(abs(x), abs(y)):
+                return False
+    return True
+
+
+def phase_bo_tune(device="cuda", scale=SCALE):
+    """The paper's tuning loop past ``n_init`` with the model on the card:
+    every model round's card selection against numpy's on the same
+    forest, pool and valid mask.  The two numpy selections of each round
+    (the shadow) are timed and taken out of that round's ask time and of
+    the tuning wall, which are the main path's."""
+    import numpy as np
+    from repro_torch.core.bo import forest_fast, smac
+    from repro_torch.kernels import ops
+    if forest_fast.acquisition_backend(device) != "torch":
+        fail(f"the acquisition does not resolve to the card on {device}")
+    rounds = []
+    shadow_s = []        # the shadow's seconds inside each ask_batch call
+    orig = forest_fast.suggest_topq
+    orig_ask = smac.SMACOptimizer.ask_batch
+
+    def shadowed(forest, X, best, y_mean, y_std, valid=None, q=1,
+                 backend=None, device="cuda"):
+        t0 = time.perf_counter()
+        ei, sel = orig(forest, X, best, y_mean, y_std, valid=valid, q=q,
+                       backend=backend, device=device)
+        t1 = time.perf_counter()
+        _, sel_f64 = orig(forest, X, best, y_mean, y_std, valid=valid, q=q,
+                          backend="numpy")
+        t2 = time.perf_counter()
+        ei_np, sel_np = orig(*as_read_in_float32(forest, X), best, y_mean,
+                             y_std, valid=valid, q=q, backend="numpy")
+        if not same_but_near_swaps(sel, sel_np, ei_np):
+            fail(f"model round {len(rounds)}: the card selected "
+                 f"{sel.tolist()}, numpy on the float32-read inputs "
+                 f"{sel_np.tolist()}")
+        rounds.append({"pool": int(X.shape[0]), "q": q,
+                       "card_ms": (t1 - t0) * 1e3, "numpy_ms": (t2 - t1) * 1e3,
+                       "swapped": not np.array_equal(sel, sel_np),
+                       "split_ties": not np.array_equal(sel_np, sel_f64)})
+        shadow_s[-1] += time.perf_counter() - t1
+        return ei, sel
+
+    def ask_batch(self, q):
+        shadow_s.append(0.0)
+        return orig_ask(self, q)
+
+    study = gups_study("hemem", device, scale)
+    forest_fast.suggest_topq = shadowed
+    smac.SMACOptimizer.ask_batch = ask_batch
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = study.tune(budget=100, batch_size=4, seed=0)
+    finally:
+        forest_fast.suggest_topq = orig
+        smac.SMACOptimizer.ask_batch = orig_ask
+    wall_s = time.perf_counter() - t0 - sum(shadow_s)
+    if len(shadow_s) != len(result.round_times):
+        fail(f"BO tune: {len(shadow_s)} ask_batch calls for "
+             f"{len(result.round_times)} rounds")
+    by_variant = ops.launch_counts_by_variant()["select_topk"]
+    passes = 1 + len(result.round_times)     # the default, then each round
+    if len(result.history) != 100 or not np.isfinite(result.best_value):
+        fail("BO tune: incomplete or non-finite history")
+    if not rounds or any(r["pool"] != ACQ_N for r in rounds):
+        fail(f"BO tune: model rounds {len(rounds)}, pools "
+             f"{sorted({r['pool'] for r in rounds})}, expected {ACQ_N}")
+    if by_variant != {"block": len(rounds), "cluster": EPOCHS * passes}:
+        fail(f"BO tune: select_topk launches {by_variant}, expected "
+             f"{len(rounds)} block (one per model round) and "
+             f"{EPOCHS * passes} cluster ({passes} Study.run passes)")
+    swaps = sum(r["swapped"] for r in rounds)
+    split_ties = sum(r["split_ties"] for r in rounds)
+    card = [r["card_ms"] for r in rounds]
+    host = [r["numpy_ms"] for r in rounds]
+    # rounds past the initial design (20 configs, 5 rounds of 4), without
+    # the shadow
+    ask_ms = [1e3 * (r["ask_s"] - sh) for r, sh
+              in zip(result.round_times[5:], shadow_s[5:])]
+    fit_ms = [1e3 * r["fit_s"] for r in result.round_times[5:]]
+    out = {"model_rounds": len(rounds), "swap_rounds": swaps,
+           "split_tie_rounds": split_ties,
+           "passes": passes, "launches": dict(by_variant),
+           "acquire_card_ms_median": statistics.median(card),
+           "acquire_numpy_ms_median": statistics.median(host),
+           "acquire_card_ms": card, "acquire_numpy_ms": host,
+           "ask_ms_median": statistics.median(ask_ms),
+           "fit_ms_median": statistics.median(fit_ms), "wall_s": wall_s,
+           "shadow_s": sum(shadow_s),
+           "best_s": result.best_value, "default_s": result.default_value}
+    print(f"BO tune (hemem, gups, budget 100, q 4, crn): {len(rounds)} model "
+          f"rounds, each selection equal to numpy's on the float32-read "
+          f"inputs ({swaps} with near-tie swaps; plain float64 numpy "
+          f"selected otherwise in {split_ties}, candidates on a split "
+          f"point); select_topk {json.dumps(by_variant)} over {passes} "
+          f"Study.run passes; acquisition ms per round, median: card "
+          f"{out['acquire_card_ms_median']:.3f}, numpy on the same inputs "
+          f"{out['acquire_numpy_ms_median']:.3f} (all rounds: card "
+          f"{json.dumps([round(x, 3) for x in card])}, numpy "
+          f"{json.dumps([round(x, 3) for x in host])}); ask ms per round "
+          f"past the initial design median {out['ask_ms_median']:.3f}, of "
+          f"it the forest fit {out['fit_ms_median']:.3f}; tuning "
+          f"wall {wall_s:.3f} s (both without the numpy shadow's "
+          f"{out['shadow_s']:.3f} s); default {result.default_value:.4f} s, "
+          f"best {result.best_value:.4f} s", flush=True)
+    return out
+
+
+def same_results(a, b) -> bool:
+    """Two lists of SimResults bitwise equal in walls and migrations."""
+    import numpy as np
+    return all(np.array_equal(x.epoch_wall_ms, y.epoch_wall_ms)
+               and np.array_equal(x.cum_migrations, y.cum_migrations)
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def phase_fig2(device="cuda", suite=SUITE, scale=SCALE):
+    """Fig. 2 on the card: each suite workload tuned (hemem, the quick
+    budget), then default against best through ``Study.sweep``."""
+    from repro_torch.core import (ExperimentSpec, SimOptions, Study,
+                                  WorkloadSpec)
+    from repro_torch.core.bo import knob_importance
+    from repro_torch.core.knobs import HEMEM_SPACE
+    from repro_torch.kernels import ops
+    import numpy as np
+    default = HEMEM_SPACE.default_config()
+    rows = {}
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    for name, inp in suite:
+        study = Study(ExperimentSpec(
+            engine="hemem", workload=WorkloadSpec(name, inp, scale=scale),
+            options=SimOptions(sampler="sparse", device=device)))
+        t0 = time.perf_counter()
+        res = study.tune(budget=40, batch_size=4, seed=3)
+        tune_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep = study.sweep(configs=[default, res.best.config])
+        sweep_s = time.perf_counter() - t0
+        key = ("hemem", study.spec.workload.key)
+        if list(sweep.cells) != [key]:
+            fail(f"fig2 {name}: sweep cells {list(sweep.cells)}")
+        run = study.run(configs=[default, res.best.config])
+        if not same_results(sweep[key], run):
+            fail(f"fig2 {name}: the sweep is not bitwise equal to Study.run")
+        default_s, best_s = sweep.total_s()[key]
+        if not (np.isfinite(default_s) and np.isfinite(best_s)
+                and best_s > 0):
+            fail(f"fig2 {name}: non-finite times")
+        imp = knob_importance(HEMEM_SPACE, res.history)
+        rows[study.key] = {
+            "default_s": default_s, "best_s": best_s,
+            "improvement": default_s / best_s, "tune_s": tune_s,
+            "sweep_s": sweep_s, "n_pages": study.workload().n_pages,
+            "epochs": study.workload().n_epochs,
+            "top_knobs": [[k, v] for k, v in list(imp.items())[:3]]}
+        print(f"fig2 {study.key}: default {default_s:.4f} s, best "
+              f"{best_s:.4f} s, {default_s / best_s:.3f}x; tune "
+              f"{tune_s:.2f} s, sweep {sweep_s:.3f} s; top knobs "
+              f"{json.dumps(rows[study.key]['top_knobs'])}", flush=True)
+    by_variant = ops.launch_counts_by_variant()["select_topk"]
+    imps = {k: v["improvement"] for k, v in rows.items()}
+    print(f"fig2 on the card in {time.perf_counter() - t_all:.1f} s, "
+          f"select_topk {json.dumps(by_variant)}; the paper's band (a "
+          f"finding, not a gate): 1.07-2.09x but graph500 ~1.0x; here "
+          f"{json.dumps({k: round(v, 3) for k, v in imps.items()})}",
+          flush=True)
+    return rows
+
+
+def phase_engine_sweep(device="cuda", scale=SCALE):
+    """hemem, memtis and hmsdk over gups and gapbs-pr at their default
+    configs: the reference's cell keys, each cell its own Study.run."""
+    from repro_torch.core import (EngineSpec, ExperimentSpec, Study,
+                                  WorkloadSpec)
+    engines = ["hemem", "memtis", "hmsdk"]
+    workloads = ["gups", "gapbs-pr"]
+    base = gups_study("hemem", device, scale)
+    t0 = time.perf_counter()
+    sweep = base.sweep(engines=engines, workloads=workloads)
+    wall_s = time.perf_counter() - t0
+    wspecs = [WorkloadSpec(w, threads=base.spec.workload.threads,
+                           scale=base.spec.workload.scale) for w in workloads]
+    keys = [(e, ws.key) for ws in wspecs for e in engines]
+    if list(sweep.cells) != keys:
+        fail(f"engine sweep: cells {list(sweep.cells)}, expected {keys}")
+    for ws in wspecs:
+        for e in engines:
+            own = Study(ExperimentSpec(
+                engine=e, workload=ws, machine=base.spec.machine,
+                options=base.spec.options)).run(
+                configs=[EngineSpec(e).config])
+            if not same_results(sweep[(e, ws.key)], own):
+                fail(f"engine sweep: cell ({e}, {ws.key}) is not bitwise "
+                     f"equal to its Study.run")
+    totals = {f"{e}/{w}": v[0] for (e, w), v in sweep.total_s().items()}
+    print(f"engine sweep ({len(sweep)} cells, each bitwise its Study.run) "
+          f"in {wall_s:.3f} s: total_s {json.dumps(totals)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2212,7 +2611,7 @@ MOE = dict(arch="granite-moe-1b-a400m", batch=4, seq=2048, prompt_len=512,
            new_tokens=32)
 #: the MoE smoke configs the card is held to the CPU path on
 MOE_SMOKE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
-#: the recurrent archs, whose smoke configs phases 15 and 17 take
+#: the recurrent archs, whose smoke configs phases 16 and 18 take
 RNN_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")
 #: recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
 #: attention at D = 256 with 10 query heads on one KV head, window 2,048):
@@ -2536,6 +2935,10 @@ def main() -> int:
     phase_small_reference()
     phase_study_run()
     tune_launches, tune_by_variant = phase_tune()
+    acq_timing = phase_topk_mask()
+    bo = phase_bo_tune()
+    phase_fig2()
+    phase_engine_sweep()
     migrate_timing = phase_page_migrate()
     attention_timing = phase_paged_attention()
     serving_launches, serving_by_variant, _, _ = phase_serving()
@@ -2611,14 +3014,21 @@ def main() -> int:
                        + serving_by_variant["select_topk"][v]
                        for v in tune_by_variant}
     topk_by_variant["cluster"] += long_study_launches
+    topk_by_variant["block"] += bo["launches"]["block"]
     kernels = [
         dict(row("select_topk", sk, topk_timing,
                  {"tune": tune_launches["select_topk"],
                   "serving": serving_launches["select_topk"],
-                  "study_past_old_ceiling": long_study_launches}),
+                  "study_past_old_ceiling": long_study_launches,
+                  "acquisition": bo["launches"]["block"]}),
              launches_by_variant=topk_by_variant,
              cluster_size=sk.CLUSTER_SIZE,
-             replay_shape_device_ms=topk_timing["replay_shape_device_ms"]),
+             replay_shape_device_ms=topk_timing["replay_shape_device_ms"],
+             acquisition_shape=acq_timing,
+             acquisition_tune={k: bo[k] for k in (
+                 "model_rounds", "swap_rounds", "split_tie_rounds",
+                 "passes", "launches",
+                 "acquire_card_ms_median", "acquire_numpy_ms_median")}),
         row("page_migrate", pmk, migrate_timing,
             {"serving": serving_launches["page_migrate"]}),
         dict(row("paged_attention", pak, attention_timing,
@@ -2639,6 +3049,10 @@ def main() -> int:
              recurrentgemma_old_variant=flash_rg["old_variant"],
              recurrentgemma_old_device_ms=flash_rg["old_device_ms"]),
     ]
+    lossy = [x for x in HEAD_LOSS if x]
+    print(f"profiler windows: {len(HEAD_LOSS)}, {len(lossy)} lost filler "
+          f"records at their head, {HEAD_LOSS.count(FILLER)} all {FILLER} "
+          f"(taken again); losses in order {json.dumps(lossy)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

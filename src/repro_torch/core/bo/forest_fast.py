@@ -1,6 +1,7 @@
-"""Array-native random-forest fit + EI acquisition (the BO hot path), numpy.
+"""Array-native random-forest fit + fused EI acquisition (the BO hot path).
 
-A copy of the reference package's numpy path:
+A copy of the reference package's module, with its jitted acquisition in
+torch:
 
 * :func:`fit_forest_fast` — level-synchronous CART growth: one vectorized
   numpy pass per depth level evaluates the exact best splits for all
@@ -9,20 +10,28 @@ A copy of the reference package's numpy path:
 * :func:`predict_forest` — batched gather-based descent: every candidate
   row walks all ``T`` trees level-synchronously on the flat arrays.
 * :func:`suggest_topq` — the acquisition: tree descent + mean/std moments
-  + vectorized-erf Expected Improvement + top-q selection by stable sort.
-  (The acquisition on the card is ROADMAP queue 1, item "BO acquisition
-  on the GPU".)
+  + Expected Improvement + exact top-q selection.  On a CUDA device
+  (:func:`acquisition_backend`) one torch function runs all of it on the
+  card, the selection through :func:`repro_torch.kernels.ops.topk_mask`
+  (the promote side of the ``select_topk`` kernel); on the CPU the numpy
+  path scores the pool on the host, as the reference does off the TPU.
 
-Determinism contract (the ``surrogate="reference"|"fast"`` switch in
-:mod:`repro_torch.core.bo.rf` relies on it): both growers consume
-identical randomness — the bootstrap matrix is drawn up front by the
-caller, and the per-node feature subsets come from :func:`feature_subsets`,
-a counter-based splitmix64 hash of ``(seed, tree, heap-node)`` — so the
-recursive reference grower (DFS order) and this level-synchronous grower
-(BFS order) produce bit-identical trees.
+Determinism contract: the grower consumes the reference's randomness —
+the bootstrap matrix is drawn up front by the caller, and the per-node
+feature subsets come from :func:`feature_subsets`, a counter-based
+splitmix64 hash of ``(seed, tree, heap-node)`` — so it grows the
+reference's trees bit for bit.
 
-EI scores are cast to float32 before top-q selection, as the reference
-does, so ties break by candidate index.
+EI scores are cast to float32 before top-q selection (the ``select_topk``
+kernel's key dtype) on both backends, so ties break by candidate index.
+The torch path computes in float32 with the exact ``torch.erf``, as the
+reference's jitted path does (JAX without x64); the numpy path in float64
+with the Abramowitz-Stegun erf.  Their EIs agree to float32 rounding, so
+their selections agree except where two candidates' EIs lie within it,
+or where a candidate sits exactly on a split point: a threshold halfway
+between two grid values of an integer knob is itself a grid value, which
+float32 sees as equal (``x <= thr``: left) and float64 may round an ulp
+below (right).
 """
 
 from __future__ import annotations
@@ -32,6 +41,16 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from ...kernels import ops
+
+#: pin the acquisition backend ("torch" | "numpy"); None dispatches by the
+#: caller's device: the torch path on a CUDA device, numpy on the CPU
+#: (where a 512-candidate pool costs milliseconds to score eagerly; the
+#: torch path is still tested on the CPU by pinning it).  For tests, not
+#: a fallback
+BACKEND: Optional[str] = None
 
 #: node-variance floor below which a node is a leaf (matches the historical
 #: ``y.std() < 1e-12`` termination: var < 1e-24)
@@ -39,6 +58,22 @@ _MIN_NODE_VAR = 1e-24
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+_BACKENDS = ("torch", "numpy")
+
+
+def acquisition_backend(device="cuda") -> str:
+    """The backend :func:`suggest_topq` resolves to for ``device``: the
+    pinned :data:`BACKEND`, else ``"numpy"`` on the CPU and ``"torch"``
+    otherwise (a CUDA device; None stands for the default, CUDA)."""
+    if BACKEND is not None:
+        if BACKEND not in _BACKENDS:
+            raise ValueError(f"forest_fast.BACKEND must be None or one of "
+                             f"{list(_BACKENDS)}, got {BACKEND!r}")
+        return BACKEND
+    if device is not None and torch.device(device).type == "cpu":
+        return "numpy"
+    return "torch"
 
 
 # ---------------------------------------------------------------------------
@@ -375,23 +410,96 @@ def _moments(preds: np.ndarray, y_mean: float,
 
 
 # ---------------------------------------------------------------------------
-# acquisition: descent + moments + EI + top-q
+# fused acquisition: descent + moments + EI + exact top-q
 # ---------------------------------------------------------------------------
+
+
+def _acquire_torch(forest: FlatForest, X: np.ndarray, best: float,
+                   y_mean: float, y_std: float, valid: np.ndarray, q: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's jitted acquisition (``_acquire_jax``), step for
+    step on one device: float32 descent over ``(T, N)`` node indices for
+    ``max_depth`` levels (a pad node or leaf, ``feature < 0``, stays
+    put), leaf values, population moments across trees, the std floors,
+    EI with the exact erf, and the exact top-``q`` mask over ``valid``
+    rows from :func:`~repro_torch.kernels.ops.topk_mask`.  Returns the
+    float32 EI ``(N,)`` and the selection mask ``(N,)`` on ``device``."""
+    dev = torch.device(device)
+    f32 = torch.float32
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    feature = put(forest.feature, torch.int64)
+    thr = put(forest.threshold, f32)
+    left = put(forest.left, torch.int64)
+    right = put(forest.right, torch.int64)
+    value = put(forest.value, f32)
+    Xt = put(X, f32)
+    best_t, y_mean_t, y_std_t = put(np.array([best, y_mean, y_std]), f32)
+    T, N = feature.shape[0], Xt.shape[0]
+    idx = torch.zeros((T, N), dtype=torch.int64, device=dev)
+    rows = torch.arange(T, device=dev)[:, None]
+    cols = torch.arange(N, device=dev)[None, :]
+    for _ in range(forest.max_depth):
+        f = feature[rows, idx]
+        xv = Xt[cols, f.clamp(min=0)]
+        nxt = torch.where(xv <= thr[rows, idx], left[rows, idx],
+                          right[rows, idx])
+        idx = torch.where(f >= 0, nxt, idx)
+    preds = value[rows, idx]
+    mean = preds.mean(dim=0) * y_std_t + y_mean_t
+    # population std (ddof 0), as jnp.std and np.std
+    std = torch.maximum(preds.std(dim=0, correction=0) * y_std_t,
+                        1e-9 * y_std_t.abs())
+    s = torch.clamp(std, min=1e-12)
+    z = (best_t - mean) / s
+    cdf = 0.5 * (1.0 + torch.erf(z / _SQRT2))
+    pdf = torch.exp(-0.5 * z * z) * _INV_SQRT_2PI
+    # s (the floored std) in both terms, matching expected_improvement
+    ei = (best_t - mean) * cdf + s * pdf
+    sel = ops.topk_mask(ei, q, valid=put(valid, torch.bool))
+    return ei, sel
+
+
+def _order_selected(ei32: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Order selected candidate indices by (EI desc, index asc)."""
+    if idx.size == 0:
+        return idx
+    return idx[np.lexsort((idx, -ei32[idx].astype(np.float64)))]
 
 
 def suggest_topq(forest: FlatForest, X: np.ndarray, best: float,
                  y_mean: float, y_std: float,
-                 valid: Optional[np.ndarray] = None, q: int = 1
+                 valid: Optional[np.ndarray] = None, q: int = 1,
+                 backend: Optional[str] = None, device="cuda"
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Score a candidate pool and select the top-``q`` EI candidates.
 
     Returns ``(ei32, selected)`` where ``ei32`` is the float32 EI per pool
     row (the selection key) and ``selected`` are up to ``q`` row indices,
-    ordered by EI descending with index tie-break — the prefix of
-    ``np.argsort(-ei, kind="stable")`` over ``valid`` rows.
+    ordered by EI descending with index tie-break — the same prefix
+    ``np.argsort(-ei, kind="stable")`` would produce over ``valid`` rows.
+
+    ``backend`` (``"torch" | "numpy"``; None resolves through
+    :func:`acquisition_backend` for ``device``) picks the path.  torch:
+    :func:`_acquire_torch` on ``device`` (CUDA when None), the selection
+    by the ``select_topk`` kernel on a card, ordered here on the host.
+    numpy: the same math in float64 with a stable-argsort selection.
     """
+    backend = backend if backend is not None \
+        else acquisition_backend(device)
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {list(_BACKENDS)}, got "
+                         f"{backend!r}")
     if valid is None:
         valid = np.ones(X.shape[0], dtype=bool)
+    if backend == "torch":
+        ei, sel = _acquire_torch(forest, X, best, y_mean, y_std, valid, q,
+                                 "cuda" if device is None else device)
+        ei32 = ei.cpu().numpy()
+        idx = np.flatnonzero(sel.cpu().numpy())
+        return ei32, _order_selected(ei32, idx)
     preds = predict_forest(forest, X)
     mean, std = _moments(preds, y_mean, y_std)
     ei32 = expected_improvement(mean, std, best).astype(np.float32)

@@ -15,18 +15,19 @@ seed; per-node feature subsets come from the counter-based
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
-from .forest_fast import FlatForest, fit_forest_fast
+from .forest_fast import FlatForest, _moments, fit_forest_fast, predict_forest
 
 
 class RandomForest:
     """Bagged regression forest.  The fitted
     :class:`~repro_torch.core.bo.forest_fast.FlatForest` is ``self.forest``
     (scored by :func:`~repro_torch.core.bo.forest_fast.suggest_topq`
-    against the target normalization ``_y_mean``/``_y_std``)."""
+    against the target normalization ``_y_mean``/``_y_std``), and
+    :meth:`predict_batch` predicts with it on the host."""
 
     def __init__(self, n_trees: int = 24, max_depth: int = 12,
                  min_leaf: int = 2, max_features: Optional[int] = None,
@@ -54,3 +55,9 @@ class RandomForest:
         self.forest = fit_forest_fast(X, yn, boot, feat_seed,
                                       self.max_depth, self.min_leaf, mf)
         return self
+
+    def predict_batch(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """De-normalized ``(mean, std)`` per row of ``X``, from one batched
+        descent of every tree (the importance sweeps)."""
+        preds = predict_forest(self.forest, np.asarray(X, dtype=np.float64))
+        return _moments(preds, self._y_mean, self._y_std)

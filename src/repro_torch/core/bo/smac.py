@@ -1,5 +1,6 @@
-"""SMAC-style Bayesian optimizer (§3.1), with batched suggestions (numpy;
-a copy of the reference package's optimizer).
+"""SMAC-style Bayesian optimizer (§3.1), with batched suggestions (a copy
+of the reference package's optimizer, whose model phase scores its pool on
+the card).
 
 Sequential Model-based Algorithm Configuration [18]: random-forest surrogate
 + Expected-Improvement acquisition, with (1) an initial random design and
@@ -25,8 +26,9 @@ as encoded unit-cube matrices (:meth:`KnobSpace.neighbors_batch` /
 ``sample_batch_encoded``), deduplicated in encoded space, and scored +
 top-q-selected by one function
 (:func:`repro_torch.core.bo.forest_fast.suggest_topq`: batched tree
-descent, moments, vectorized-erf EI and a stable top-q); only the q
-returned suggestions are decoded to dicts.
+descent, moments, EI and the exact top-q; on a CUDA ``device`` one torch
+function ending in the ``select_topk`` kernel, on the CPU numpy); only the
+q returned suggestions are decoded to dicts.
 """
 
 from __future__ import annotations
@@ -52,7 +54,11 @@ class SMACOptimizer:
     def __init__(self, space: KnobSpace, seed: int = 0,
                  n_init: int = 20, random_prob: float = 0.20,
                  n_candidates: int = 512, n_local_parents: int = 4,
-                 n_trees: int = 24, start_with_default: bool = True):
+                 n_trees: int = 24, start_with_default: bool = True,
+                 device="cuda"):
+        """``device`` is where the model phase scores its candidate pool
+        (:func:`~repro_torch.core.bo.forest_fast.acquisition_backend`):
+        the card for a CUDA device, numpy on the host for the CPU."""
         self.space = space
         self.rng = np.random.default_rng(seed)
         self.n_init = n_init
@@ -63,6 +69,7 @@ class SMACOptimizer:
         self.start_with_default = start_with_default
         self.observations: List[Observation] = []
         self._surrogate: Optional[RandomForest] = None
+        self.device = device
         #: cumulative surrogate-fit wall clock (the tuner's per-round
         #: fit/acquisition breakdown reads deltas of this)
         self.fit_s = 0.0
@@ -77,12 +84,36 @@ class SMACOptimizer:
             Observation(self.space.validate(config), float(value)))
         self._surrogate = None  # invalidate
 
-    def tell_batch(self, configs, values) -> None:
-        """Record one batched evaluation round, in order."""
+    @staticmethod
+    def _config_key(config: Mapping[str, Any]):
+        return tuple(sorted(config.items()))
+
+    def tell_batch(self, configs, values, crn: bool = False) -> None:
+        """Record one batched evaluation round, in order.
+
+        ``crn=True`` marks the round as evaluated under common random
+        numbers (all configs shared one noise draw, e.g.
+        ``SimOptions(crn=True)``).  If the round re-evaluated any
+        already-observed config, the mean difference between its new and
+        first recorded values estimates the round's shared noise offset,
+        and the whole round is debiased by it before being recorded.
+        Otherwise (or with ``crn=False``) values are recorded unchanged.
+        """
         if len(configs) != len(values):
             raise ValueError("configs and values must have equal length")
+        configs = [self.space.validate(c) for c in configs]
+        offset = 0.0
+        if crn and self.observations:
+            recorded = {}
+            for o in self.observations:
+                recorded.setdefault(self._config_key(o.config), o.value)
+            deltas = [float(v) - recorded[self._config_key(c)]
+                      for c, v in zip(configs, values)
+                      if self._config_key(c) in recorded]
+            if deltas:
+                offset = float(np.mean(deltas))
         for cfg, val in zip(configs, values):
-            self.tell(cfg, float(val))
+            self.tell(cfg, float(val) - offset)
 
     # -- surrogate ------------------------------------------------------------
     def surrogate(self) -> RandomForest:
@@ -111,7 +142,8 @@ class SMACOptimizer:
         best_val = self.best.value
         X = self._candidate_pool_encoded(self.n_candidates)
         _, sel = forest_fast.suggest_topq(
-            model.forest, X, best_val, model._y_mean, model._y_std, q=1)
+            model.forest, X, best_val, model._y_mean, model._y_std, q=1,
+            device=self.device)
         return self.space.decode_batch(X[sel])[0]
 
     def _candidate_pool_encoded(self, n_candidates: int) -> np.ndarray:
@@ -176,7 +208,7 @@ class SMACOptimizer:
         valid[first] = True
         _, sel = forest_fast.suggest_topq(
             model.forest, X, best_val, model._y_mean, model._y_std,
-            valid=valid, q=n_model)
+            valid=valid, q=n_model, device=self.device)
         out.extend(self.space.decode_batch(X[sel]))
         while len(out) < q:  # pool exhausted by dedup: fall back to random
             out.append(self.space.sample(self.rng))
@@ -216,7 +248,9 @@ class RandomSearch:
                        else self.space.sample(self.rng))
         return out
 
-    def tell_batch(self, configs, values) -> None:
+    def tell_batch(self, configs, values, crn: bool = False) -> None:
+        # crn is accepted for interface parity with SMACOptimizer; an
+        # unguided search has no model to debias for
         if len(configs) != len(values):
             raise ValueError("configs and values must have equal length")
         for cfg, val in zip(configs, values):

@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..knobs import Config, get_space
+from ..knobs import Config, KnobSpace, get_space
 from .smac import Observation, RandomSearch, SMACOptimizer
 
 
@@ -79,19 +79,31 @@ class TuningResult:
 
 class TuningSession:
     def __init__(self, engine: str, objective: Callable[[Config], float],
-                 scenario_key: str = "", optimizer: str = "smac",
-                 budget: int = 100, seed: int = 0,
+                 scenario_key: str = "", space: Optional[KnobSpace] = None,
+                 optimizer: str = "smac", budget: int = 100, seed: int = 0,
                  n_init: int = 20, random_prob: float = 0.20,
                  batch_size: int = 1,
                  objective_batch: Optional[
-                     Callable[[Sequence[Config]], Sequence[float]]] = None):
+                     Callable[[Sequence[Config]], Sequence[float]]] = None,
+                 crn: bool = False, device="cuda"):
+        """``space`` overrides the engine's knob space; ``device`` is where
+        SMAC's model phase scores each pool (the card for a CUDA device,
+        numpy on the host for the CPU)."""
         self.engine = engine
-        self.space = get_space(engine)
+        self.space = space if space is not None else get_space(engine)
         self.objective = objective
         self.objective_batch = objective_batch
         self.scenario_key = scenario_key
         self.budget = budget
         self.batch_size = max(1, int(batch_size))
+        #: the batched objective evaluates under common random numbers, so
+        #: tell_batch(crn=True) debiases any re-evaluated config against its
+        #: recorded value.  No incumbent control is planted: with the
+        #: simulator's counter-based draws the noise is fixed given the
+        #: spec seed (re-evaluations are bitwise-deterministic), so a
+        #: control could never measure a nonzero offset and would only burn
+        #: a budget slot.
+        self.crn = bool(crn)
         if self.batch_size > 1 and objective_batch is None:
             # fall back to mapping the scalar objective over the batch
             self.objective_batch = lambda cfgs: [float(objective(c))
@@ -99,7 +111,8 @@ class TuningSession:
         if optimizer == "smac":
             self.optimizer = SMACOptimizer(self.space, seed=seed,
                                            n_init=n_init,
-                                           random_prob=random_prob)
+                                           random_prob=random_prob,
+                                           device=device)
         elif optimizer == "random":
             self.optimizer = RandomSearch(self.space, seed=seed)
         else:
@@ -129,7 +142,7 @@ class TuningSession:
                 te = time.perf_counter()
                 vals = [float(v) for v in self.objective_batch(cfgs)]
                 tt = time.perf_counter()
-                self.optimizer.tell_batch(cfgs, vals)
+                self.optimizer.tell_batch(cfgs, vals, crn=self.crn)
                 tend = time.perf_counter()
                 round_times.append({
                     "ask_s": te - ta, "fit_s": fit_s() - fit0,

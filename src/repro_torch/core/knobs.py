@@ -1,5 +1,6 @@
 """Knob (parameter) spaces for tiering engines (a copy of the reference
-package's, trimmed to what the port's optimizer uses).
+package's, trimmed to what the port's optimizer and knob importance
+use).
 
 Faithful to the paper:
   * Table 2 lists HeMem's 10 knobs with defaults and [min, max] ranges; those are
@@ -84,6 +85,9 @@ class KnobSpace:
     # -- basic access ------------------------------------------------------
     def __len__(self) -> int:
         return len(self.knobs)
+
+    def __iter__(self):
+        return iter(self.knobs)
 
     def __getitem__(self, name: str) -> Knob:
         return self._by_name[name]

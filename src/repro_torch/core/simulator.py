@@ -8,7 +8,9 @@ each tier, migration traffic on both tiers, write-protect stalls,
 monitoring cost and engine overhead (the reference package's model,
 unchanged).  :func:`run_simulation_batch` carries a batch of B candidate
 configurations through one shared workload trace in the torch epoch loop
-(:mod:`repro_torch.core.engine_torch`) on one device.
+(:mod:`repro_torch.core.engine_torch`) on one device;
+:func:`run_simulation_cells` runs several ``(workload, engine, configs)``
+cells, one such pass each.
 
 Scaling: ``workload.scale`` shrinks the page count and access volume while
 time semantics stay real — effective bandwidth and memory-level parallelism
@@ -236,6 +238,49 @@ def _run_batch(workload: Workload, engine_name: str,
         placement=place[b] if record_heatmap else None) for b in range(B)]
 
 
+def run_simulation_cells(cells,
+                         machine: "Machine | str" = PMEM_LARGE,
+                         fast_slow_ratio: float = 8.0,
+                         seeds=0,
+                         sampler: str = "elementwise",
+                         record_heatmap: bool = False,
+                         heat_bins: int = 128,
+                         fast_capacity_pages: Optional[int] = None,
+                         crn: bool = False,
+                         device="cuda") -> List[List[SimResult]]:
+    """Evaluate many ``(workload, engine_name, configs)`` *cells*, each as
+    one pass of the epoch loop on ``device``, in input order; returns one
+    ``List[SimResult]`` per cell.
+
+    ``seeds`` is an int (shared by every config of every cell) or one seed
+    sequence per cell (one seed per config).  ``crn=True`` is per cell:
+    every row shares the cell's first seed.  (The reference spreads cells
+    over a process pool; on one card they run one after another.)
+    """
+    machine = _as_machine(machine)
+    cells = [(wl, eng, [dict(c) for c in cfgs]) for wl, eng, cfgs in cells]
+    if np.ndim(seeds) == 0:
+        cell_seeds = [[int(seeds)] * len(cfgs) for _, _, cfgs in cells]
+    else:
+        rows = list(seeds)
+        if any(np.ndim(r) == 0 for r in rows):
+            raise ValueError("seeds must be an int or one seed sequence "
+                             "per cell (one seed per config); got a flat "
+                             "sequence — wrap it per cell")
+        cell_seeds = [[int(s) for s in row] for row in rows]
+        if len(cell_seeds) != len(cells) or any(
+                len(row) != len(cells[i][2])
+                for i, row in enumerate(cell_seeds)):
+            raise ValueError("seeds must be an int or one seed sequence "
+                             "per cell (one seed per config)")
+    if crn:
+        cell_seeds = [[row[0]] * len(row) for row in cell_seeds]
+    return [_run_batch(wl, eng, cfgs, machine, fast_slow_ratio, cell_seeds[i],
+                       sampler, record_heatmap, heat_bins,
+                       fast_capacity_pages, crn, device) if cfgs else []
+            for i, (wl, eng, cfgs) in enumerate(cells)]
+
+
 def run_simulation_batch(workload: Workload, engine_name: str,
                          configs: Sequence[Mapping[str, Any]],
                          machine: "Machine | str" = PMEM_LARGE,
@@ -248,7 +293,7 @@ def run_simulation_batch(workload: Workload, engine_name: str,
                          crn: bool = False,
                          device="cuda") -> List[SimResult]:
     """Simulate ``workload`` under B candidate configs in one pass on
-    ``device``.
+    ``device`` (one cell of :func:`run_simulation_cells`).
 
     The trace is generated once and shared; engine state carries a leading
     batch axis.  ``seeds`` is an int (every config) or one seed per config;
@@ -265,8 +310,7 @@ def run_simulation_batch(workload: Workload, engine_name: str,
     seeds = [int(s) for s in seeds]
     if len(seeds) != B:
         raise ValueError("seeds must be an int or one seed per config")
-    if crn:
-        seeds = [seeds[0]] * B
-    return _run_batch(workload, engine_name, configs, _as_machine(machine),
-                      fast_slow_ratio, seeds, sampler, record_heatmap,
-                      heat_bins, fast_capacity_pages, crn, device)
+    return run_simulation_cells(
+        [(workload, engine_name, configs)], machine, fast_slow_ratio,
+        [seeds], sampler, record_heatmap, heat_bins, fast_capacity_pages,
+        crn, device)[0]

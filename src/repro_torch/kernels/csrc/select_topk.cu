@@ -83,7 +83,9 @@
 //
 // C interface: select_topk_launch(...) (block) and
 // select_topk_cluster_launch(...) (cluster) launch on the given stream,
-// allocate nothing, and return cudaGetLastError().
+// allocate nothing, and return cudaGetLastError().  A null d_mask drops
+// the demote side: d_heat, n_demote and d_out are then not touched (the
+// BO acquisition's top-q, a promote side alone).
 
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
@@ -191,12 +193,14 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
   const int tid = threadIdx.x;
   const size_t row = static_cast<size_t>(blockIdx.x) * n;
   const uint8_t* pm = p_mask + row;
-  const uint8_t* dm = d_mask + row;
   const float* ph = p_heat + row;
-  const float* dh = d_heat + row;
+  // a null demote side (d_mask) selects nothing and is not read
+  const bool has_d = d_mask != nullptr;
+  const uint8_t* dm = has_d ? d_mask + row : nullptr;
+  const float* dh = has_d ? d_heat + row : nullptr;
 
   const int kp = row_k(n_promote[blockIdx.x], n);
-  const int kd = row_k(n_demote[blockIdx.x], n);
+  const int kd = has_d ? row_k(n_demote[blockIdx.x], n) : 0;
 
   // ---- cutoff: 4 radix passes of 8 bits, both sides per pass ----------
   // Zero (non-candidate) keys stay out of the histograms: the select runs
@@ -270,7 +274,7 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
     uint32_t key_p = 0, key_d = 0;
     if (i < n) {
       key_p = promote_key(pm, ph, i);
-      key_d = demote_key(dm, dh, i);
+      if (kd > 0) key_d = demote_key(dm, dh, i);
     }
     const bool bound_p = kp > 0 && key_p == prefix_p && key_p > 0;
     const bool bound_d = kd > 0 && key_d == prefix_d && key_d > 0;
@@ -283,7 +287,7 @@ select_topk_kernel(const uint8_t* __restrict__ p_mask,
       const bool take_d = kd > 0 && (key_d > prefix_d ||
                                      (bound_d && Pack::demote(before) < rank_d));
       p_out[row + i] = take_p ? 1 : 0;
-      d_out[row + i] = take_d ? 1 : 0;
+      if (has_d) d_out[row + i] = take_d ? 1 : 0;
     }
     carry += tile_total;
     __syncthreads();  // scan_tmp is reused by the next tile
@@ -350,19 +354,21 @@ select_topk_cluster_kernel(const uint8_t* __restrict__ p_mask,
   const int m = min(n, lo + slice) - lo;  // this slice's pages
   uint32_t* key_p = keys;
   uint32_t* key_d = keys + slice;
+  // a null demote side (d_mask) selects nothing and is not read
+  const bool has_d = d_mask != nullptr;
+  const int kp = row_k(n_promote[b], n);
+  const int kd = has_d ? row_k(n_demote[b], n) : 0;
 
   // ---- keys of the slice, read from device memory once ----------------
   for (int i = tid; i < m; i += kClusterThreads) {
     key_p[i] = promote_key(p_mask + row, p_heat + row, lo + i);
-    key_d[i] = demote_key(d_mask + row, d_heat + row, lo + i);
+    key_d[i] = kd > 0 ? demote_key(d_mask + row, d_heat + row, lo + i) : 0u;
   }
   for (int i = tid; i < 2 * kBins; i += kClusterThreads) {
     hist[i / kBins][i % kBins] = 0;
     summed[0][i / kBins][i % kBins] = 0;
   }
   if (tid < 2) slice_offset[tid] = 0;
-  const int kp = row_k(n_promote[b], n);
-  const int kd = row_k(n_demote[b], n);
   // every CTA has started and cleared what the others add into
   cluster_sync();
 
@@ -475,7 +481,7 @@ select_topk_cluster_kernel(const uint8_t* __restrict__ p_mask,
     const bool take_p = kp > 0 && (kpi > prefix_p || (bound_p && Pack::promote(before) < rank_p));
     const bool take_d = kd > 0 && (kdi > prefix_d || (bound_d && Pack::demote(before) < rank_d));
     p_out[row + lo + i] = take_p ? 1 : 0;
-    d_out[row + lo + i] = take_d ? 1 : 0;
+    if (has_d) d_out[row + lo + i] = take_d ? 1 : 0;
     before += Pack::both(bound_p, bound_d);
   }
 }

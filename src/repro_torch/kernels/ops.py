@@ -50,6 +50,33 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
         n_promote.to(f32).contiguous(), n_demote.to(f32).contiguous())
 
 
+def topk_mask(scores, k, valid=None):
+    """Exact top-``k`` boolean mask over a 1-D score vector (descending,
+    candidate-index tie-break): the promote side of :func:`select_topk`
+    alone, on one ``(1, N)`` row.
+
+    The BO acquisition's top-q-EI step
+    (:func:`repro_torch.core.bo.forest_fast.suggest_topq`).  Scores are
+    taken as float32 (the kernel's key dtype); ``k`` becomes the kernel's
+    float32 count; ``valid`` (bool ``(N,)``, all rows when None) masks
+    candidates out.  Dispatch by device as :func:`select_topk`: the
+    kernel gets no demote side (it reads and writes the promote side
+    only), the plain version an empty one; launches count as
+    :func:`select_topk`'s."""
+    s = scores.to(torch.float32).reshape(1, -1).contiguous()
+    v = torch.ones_like(s, dtype=torch.bool) if valid is None \
+        else valid.to(device=s.device, dtype=torch.bool).reshape(1, -1)
+    n_promote = torch.full((1,), float(k), dtype=torch.float32,
+                           device=s.device)
+    if not _use_kernel(s):
+        pm, _ = R.select_topk_ref(v, s, torch.zeros_like(v),
+                                  torch.zeros_like(s), n_promote,
+                                  torch.zeros_like(n_promote))
+        return pm[0]
+    pm, _ = sk.select_topk(v.contiguous(), s, None, None, n_promote, None)
+    return pm[0]
+
+
 def page_migrate(dst, src, dst_ids, src_ids):
     """``dst[dst_ids[i]] = src[src_ids[i]]`` for every lane, in place;
     negative ids are no-ops and the last lane wins a shared destination;

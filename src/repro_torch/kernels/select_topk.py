@@ -20,10 +20,12 @@ picks one from the row length:
 
 The wrapper takes CUDA tensors only and launches a kernel or raises:
 masks bool ``(B, n)``, heats float32 ``(B, n)``, counts float32 ``(B,)``,
-all contiguous on one device, ``n <= MAX_N``.  It allocates the two bool
-output masks, launches on the current stream, checks the launch, and adds
-one to :data:`launches` and to the variant's entry of
-:data:`launches_by_variant`.
+all contiguous on one device, ``n <= MAX_N``.  The demote side may be
+left out (``d_mask``, ``d_heat`` and ``n_demote`` all None): the kernel
+then reads and writes the promote side only, and no demote mask is
+returned.  It allocates the output masks, launches on the current stream,
+checks the launch, and adds one to :data:`launches` and to the variant's
+entry of :data:`launches_by_variant`.
 """
 
 from __future__ import annotations
@@ -113,7 +115,9 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
     """Launch a CUDA kernel: ``(promote_mask, demote_mask)`` bool
     ``(B, n)``, the top ``floor(n_promote)`` promote candidates by heat
     descending and the top ``floor(n_demote)`` demote candidates by heat
-    ascending per row, ties by page index ascending.
+    ascending per row, ties by page index ascending.  With ``d_mask``,
+    ``d_heat`` and ``n_demote`` all None the demote side is left out and
+    ``demote_mask`` is None.
 
     ``variant`` overrides :func:`pick_variant`'s choice; it exists to time
     one kernel against the other at the same shape on the card
@@ -127,13 +131,19 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
     if n > MAX_N:
         raise ValueError(f"select_topk takes rows of at most {MAX_N} pages, "
                          f"got {n}")
-    for name, t, dtype, shape in (
-            ("p_mask", p_mask, torch.bool, (B, n)),
-            ("p_heat", p_heat, torch.float32, (B, n)),
-            ("d_mask", d_mask, torch.bool, (B, n)),
-            ("d_heat", d_heat, torch.float32, (B, n)),
-            ("n_promote", n_promote, torch.float32, (B,)),
-            ("n_demote", n_demote, torch.float32, (B,))):
+    demote = (d_mask, d_heat, n_demote)
+    has_d = d_mask is not None
+    if any((t is None) == has_d for t in demote):
+        raise ValueError("select_topk: pass d_mask, d_heat and n_demote "
+                         "together, or none of them")
+    checks = [("p_mask", p_mask, torch.bool, (B, n)),
+              ("p_heat", p_heat, torch.float32, (B, n)),
+              ("n_promote", n_promote, torch.float32, (B,))]
+    if has_d:
+        checks += [("d_mask", d_mask, torch.bool, (B, n)),
+                   ("d_heat", d_heat, torch.float32, (B, n)),
+                   ("n_demote", n_demote, torch.float32, (B,))]
+    for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, device)
     chosen = variant or pick_variant(B, n)
     if chosen not in VARIANTS:
@@ -142,13 +152,18 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
     if chosen == "cluster" and B > MAX_GRID_Y:
         raise ValueError(f"select_topk: {B} rows exceed the launch grid")
     pm = torch.empty((B, n), dtype=torch.bool, device=device)
-    dm = torch.empty((B, n), dtype=torch.bool, device=device)
+    dm = torch.empty((B, n), dtype=torch.bool, device=device) if has_d \
+        else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     fn = _kernel(chosen)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(p_mask.data_ptr(), p_heat.data_ptr(), d_mask.data_ptr(),
-                 d_heat.data_ptr(), n_promote.data_ptr(), n_demote.data_ptr(),
-                 pm.data_ptr(), dm.data_ptr(), B, n, stream)
+        err = fn(p_mask.data_ptr(), p_heat.data_ptr(), ptr(d_mask),
+                 ptr(d_heat), n_promote.data_ptr(), ptr(n_demote),
+                 pm.data_ptr(), ptr(dm), B, n, stream)
     if err != 0:
         raise RuntimeError(f"select_topk {chosen} kernel launch failed: CUDA "
                            f"error {err}")

@@ -123,6 +123,46 @@ def test_select_topk_rule_takes_the_cluster_kernel_on_long_rows(cuda_device):
         sk.select_topk(*args, variant="radix")
 
 
+@pytest.mark.parametrize("B,n", [(3, 256), (1, 512), (8, 32783), (2, 15)])
+@pytest.mark.parametrize("variant", sk.VARIANTS)
+def test_select_topk_kernels_without_a_demote_side(cuda_device, B, n,
+                                                   variant):
+    """No demote side (the acquisition's call): each kernel's promote mask
+    equals the one it computes beside a demote side, and no demote mask
+    comes back; a demote side given in part is refused."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(B + n, B, n, 3, 0.6)]
+    pm, _ = sk.select_topk(*args, variant=variant)
+    alone, none = sk.select_topk(args[0], args[1], None, None, args[4], None,
+                                 variant=variant)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(alone, pm)
+    with pytest.raises(ValueError, match="together"):
+        sk.select_topk(args[0], args[1], args[2], None, args[4], None)
+
+
+@pytest.mark.parametrize("n", [40, 512, 1536])
+@pytest.mark.parametrize("k", [0, 1, 5, "n"])
+def test_topk_mask_kernel_matches_plain(cuda_device, n, k):
+    """The BO acquisition's top-q (the promote side of select_topk on one
+    row, heavy ties, a valid mask): the rule's kernel (block up to 1,024
+    rows, cluster above) bitwise equal to the plain version."""
+    k = n if k == "n" else k
+    rng = np.random.default_rng(n + 7)
+    ei = rng.uniform(0, 1, size=n).astype(np.float32)
+    ei[::4] = ei[1]
+    valid = rng.uniform(size=n) < 0.8
+    scores = torch.from_numpy(ei)
+    mask = torch.from_numpy(valid)
+    want = ops.topk_mask(scores, k, mask)          # CPU: the plain version
+    before = dict(sk.launches_by_variant)
+    got = ops.topk_mask(scores.to(cuda_device), k, mask.to(cuda_device))
+    torch.cuda.synchronize()
+    variant = sk.pick_variant(1, n)
+    assert sk.launches_by_variant[variant] == before[variant] + 1
+    assert torch.equal(got.cpu(), want)
+
+
 # ---------------------------------------------------------------------------
 # page_migrate
 # ---------------------------------------------------------------------------

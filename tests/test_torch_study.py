@@ -85,8 +85,6 @@ def test_spec_round_trip_and_defaults():
 def test_unported_surface_raises_not_implemented():
     study = Study(_spec())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        study.sweep(engines=["hemem"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         study.tune(budget=2, executor="async")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         study.tune(budget=2, online=True)
