@@ -70,7 +70,29 @@ counts are printed at the end).
    the same configs, the improvement beside the paper's band and
    ``knob_importance``'s top three knobs; (d) a sweep of hemem, memtis and
    hmsdk over gups and gapbs-pr, the reference's cell keys, each cell
-   bitwise equal to its own ``Study.run``;
+   bitwise equal to its own ``Study.run``; then asynchronous and online
+   tuning on the same deployment (``phase_tune_service``), each part's
+   seconds on a line of its own: (a) ``run_simulation_segment`` over
+   [0, 15), [15, 30) and [30, 60) carried, B = 4, bitwise equal to
+   ``Study.run``'s rows and to a rerun, 60 cluster launches; (b)
+   ``Study.tune(executor="async", slots=1)`` against ``Study.tune``,
+   budget 26, seed 0, histories bitwise equal, one block launch per
+   model-phase ask (the 26th); (c) ``Study.tune(budget=100, executor="async",
+   slots=4, scheduler="asha")`` on thread slots with a journal: cluster
+   launches equal to the epochs evaluated, no failed trial; makespan,
+   slot utilization, ASHA's saved share and the incumbent beside the sync
+   budget-100 wall of (b) above; (d) (c)'s study in a child process,
+   SIGKILLed once its journal holds three quarters of (c)'s lines (at
+   least 20; deadline 600 s), resumed here, while another child reruns
+   (c): both journals byte-identical to (c)'s, all three valid under
+   ``tools/journal_schema.py`` (run as a subprocess);
+   (e) 2 process slots (spawned, each starting CUDA and loading the
+   kernels) against 2 thread slots, budget 12: journals byte-identical;
+   (f) ``Study.tune(online=True, window_epochs=10, batch_size=4)`` on
+   drift-hotspot at scale 1.0 (switches at 20 and 40): zero thrash, each
+   switch detected in the first window past it, 10 cluster launches a
+   window, a journaled rerun byte-identical, the windows to re-adapt and
+   the deployed wall beside the default config's;
 7. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
@@ -212,10 +234,13 @@ counts are printed at the end).
 27. the xlstm-1.3b serving path at full width and depth (48 layers: 42
     mLSTM, 6 sLSTM): a prefill of 4 x 2,048 tokens launching no kernel,
     finite logits bitwise equal on a rerun, prefill ms and tokens/s, a
-    profiled prefill with the sLSTM loop's and the mLSTM chunks' device
-    and host ms; then its launcher, as above, its prompt logits against a
-    prefill whose mLSTM layers run at chunk 1 (what decode computes; the
-    reference's mLSTM clamps within a chunk only) within
+    profiled prefill of its first 512 tokens (the sLSTM loop's ~140
+    kernels a token make the profiler's post-processing the phase's
+    longest step at 2,048) with the sLSTM loop's and the mLSTM chunks'
+    device and host ms; then its launcher (a prompt of 256 tokens), as
+    above, its prompt logits against a prefill whose mLSTM layers run at
+    chunk 1 (what decode computes; the reference's mLSTM clamps within a
+    chunk only) within
     ``LM_LOGIT_TOL``, the distance to the ordinary prefill reported
     beside;
 28. one layer of each recurrent kind at full width (RG-LRU at d_model
@@ -1025,6 +1050,334 @@ def phase_engine_sweep(device="cuda", scale=SCALE):
     totals = {f"{e}/{w}": v[0] for (e, w), v in sweep.total_s().items()}
     print(f"engine sweep ({len(sweep)} cells, each bitwise its Study.run) "
           f"in {wall_s:.3f} s: total_s {json.dumps(totals)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# asynchronous and online tuning: segments, the tune service, the online
+# re-tuner on the GUPS deployment
+# ---------------------------------------------------------------------------
+#: the async study at the paper's budget: 4 thread slots, ASHA rungs at
+#: 15, 30 and 60 epochs
+TS_KW = dict(budget=100, seed=0, executor="async", slots=4,
+             scheduler="asha")
+#: the twin study of thread against process slots (its budget and (b)'s
+#: are the ones lowered when the phase runs long)
+TS_PROC_KW = dict(budget=12, seed=0, executor="async", slots=2,
+                  scheduler="asha")
+#: async at one slot against sync: with optimizer seed 0 the asks past
+#: n_init = 20 are random interleaves (probability 0.2 each) up to the
+#: 26th, the first model-phase ask
+TS_SYNC_BUDGET = 26
+#: journals and the killed child's study go here (build/ is gitignored)
+TS_DIR = ROOT / "build" / "tune_service"
+#: the killed child's study: (c)'s, on the card, in a fresh interpreter
+TS_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.core import ExperimentSpec, SimOptions, Study, WorkloadSpec
+Study(ExperimentSpec(
+    engine="hemem", workload=WorkloadSpec("gups", "8GiB-hot", scale={scale!r}),
+    machine="pmem-large",
+    options=SimOptions(seed=0, crn=True, device={device!r}))).tune(
+    journal={journal!r}, **{kw!r})
+"""
+#: online re-tuning: drift-hotspot (gups's hot set rotated every 20
+#: epochs) in windows of 10 epochs, 4 candidates a window
+ONLINE_W, ONLINE_Q = 10, 4
+
+
+def topk_counts():
+    from repro_torch.kernels import ops
+    return dict(ops.launch_counts_by_variant()["select_topk"])
+
+
+def journal_schema_ok(*paths):
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "journal_schema.py"),
+         *map(str, paths)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"journal_schema.py: {out.stdout}{out.stderr}")
+
+
+def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
+    """(a) segments against Study.run; (b) async at one slot against sync;
+    (c) the paper's budget on 4 thread slots with ASHA, twice; (d) a
+    SIGKILLed child resumed; (e) process slots against thread slots;
+    (f) online re-tuning on drift-hotspot."""
+    import os
+    import shutil
+    import signal
+    import numpy as np
+    from repro_torch.core import (ExperimentSpec, SimOptions, Study,
+                                  WorkloadSpec)
+    from repro_torch.core.bo import forest_fast
+    from repro_torch.core.simulator import run_simulation_segment
+    from repro_torch.core.tune_service import read_events
+    from repro_torch.kernels import ops
+    shutil.rmtree(TS_DIR, ignore_errors=True)
+    TS_DIR.mkdir(parents=True)
+    out = {}
+
+    # (a) segments, carried, against the whole run
+    t0 = time.perf_counter()
+    study = gups_study("hemem", device, scale)
+    cfgs = batch_configs("hemem")[:4]
+    whole = study.run(configs=cfgs)
+    opts = study.spec.options
+
+    def segments():
+        parts, carry = [], None
+        for lo, hi in ((0, 15), (15, 30), (30, 60)):
+            seg = run_simulation_segment(
+                study.workload(), "hemem", cfgs, study.machine,
+                seeds=opts.seed, sampler=opts.sampler, crn=True,
+                epoch_start=lo, epoch_stop=hi, carry=carry,
+                return_carry=True, device=device)
+            for b, r in enumerate(whole):
+                if not (np.array_equal(seg["wall_ms"][:, b],
+                                       r.epoch_wall_ms[lo:hi])
+                        and np.float32(r.cum_migrations[hi - 1])
+                        == seg["carry"][4][b]):
+                    fail(f"segment [{lo}, {hi}) row {b} is not bitwise "
+                         f"Study.run's")
+            parts.append(seg["wall_ms"])
+            carry = seg["carry"]
+        return np.concatenate(parts)
+
+    ops.reset_launch_counts()
+    first = segments()
+    seg_counts = topk_counts()
+    if seg_counts != {"block": 0, "cluster": EPOCHS}:
+        fail(f"segments: select_topk {seg_counts}, expected {EPOCHS} cluster")
+    if not np.array_equal(segments(), first):
+        fail("segments: a rerun is not bitwise equal")
+    out["a_s"] = time.perf_counter() - t0
+    print(f"tune service (a) segments [0,15)+[15,30)+[30,60) at B=4: "
+          f"bitwise Study.run's rows and a rerun, select_topk "
+          f"{json.dumps(seg_counts)}", flush=True)
+    print(f"tune service (a) seconds {out['a_s']:.3f}", flush=True)
+
+    # (b) async at one slot against sync, past n_init: one block launch
+    # per model-phase ask
+    t0 = time.perf_counter()
+    asks = []
+    orig = forest_fast.suggest_topq
+
+    def counted(*args, **kw):
+        asks.append(1)
+        return orig(*args, **kw)
+
+    forest_fast.suggest_topq = counted
+    runs = {}
+    try:
+        for name, kw in (("sync", dict(batch_size=1)),
+                         ("async", dict(executor="async", slots=1))):
+            del asks[:]
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            res = gups_study("hemem", device, scale).tune(
+                budget=TS_SYNC_BUDGET, seed=0, **kw)
+            runs[name] = (res, topk_counts(), len(asks),
+                          time.perf_counter() - t1)
+    finally:
+        forest_fast.suggest_topq = orig
+    (r_sync, c_sync, a_sync, w_sync), (r_async, c_async, a_async, w_async) \
+        = runs["sync"], runs["async"]
+    if [(o.config, o.value) for o in r_sync.history] != \
+            [(o.config, o.value) for o in r_async.history] \
+            or r_sync.default_value != r_async.default_value:
+        fail("async at slots=1: history differs from sync")
+    passes = EPOCHS * (TS_SYNC_BUDGET + 1)
+    for name, c, a in (("sync", c_sync, a_sync), ("async", c_async,
+                                                  a_async)):
+        if not a or c != {"block": a, "cluster": passes}:
+            fail(f"{name} tune: select_topk {c}, expected {a} block (one "
+                 f"per model-phase ask, at least one) and {passes} cluster")
+    out["b_s"] = time.perf_counter() - t0
+    out["b"] = {"sync_wall_s": w_sync, "async_wall_s": w_async,
+                "model_asks": a_async, "launches": c_async}
+    print(f"tune service (b) async slots=1 == sync bitwise (budget "
+          f"{TS_SYNC_BUDGET}, {a_async} model-phase asks), select_topk "
+          f"{json.dumps(c_async)}; wall sync {w_sync:.3f} s, async "
+          f"{w_async:.3f} s", flush=True)
+    print(f"tune service (b) seconds {out['b_s']:.3f}", flush=True)
+
+    # (c) the paper's budget on 4 thread slots with ASHA; its rerun runs
+    # in a child process beside (d)'s (three studies back to back would
+    # take the phase past four minutes: thread slots share one GIL)
+    t0 = time.perf_counter()
+    first = TS_DIR / "asha0.jsonl"
+    ops.reset_launch_counts()
+    res = gups_study("hemem", device, scale).tune(journal=str(first),
+                                                  **TS_KW)
+    c_counts = topk_counts()
+    if c_counts["cluster"] != res.epochs_evaluated:
+        fail(f"ASHA study: {c_counts['cluster']} cluster launches, "
+             f"{res.epochs_evaluated} epochs evaluated")
+    rungs = sorted({t["epochs_run"] for t in res.trials})
+    if not set(rungs) <= {15, 30, 60} or res.n_stopped_early == 0:
+        fail(f"ASHA study: rungs {rungs}, {res.n_stopped_early} stopped")
+    out["c_s"] = time.perf_counter() - t0
+
+    # (d) (c)'s study in a child process, SIGKILLed, resumed here
+    t0 = time.perf_counter()
+    rerun, killed = TS_DIR / "asha1.jsonl", TS_DIR / "killed.jsonl"
+    # killed three quarters in, so the resume here re-evaluates a quarter
+    kill_at = max(20, 3 * len(first.read_bytes().splitlines()) // 4)
+    children = {}
+    try:
+        for name, path in (("rerun", rerun), ("killed", killed)):
+            children[name] = subprocess.Popen(
+                [sys.executable, "-c", TS_CHILD.format(
+                    src=str(ROOT / "src"), scale=scale, device=device,
+                    journal=str(path), kw=TS_KW)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        proc = children["killed"]
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and proc.poll() is None:
+            if killed.exists() and \
+                    len(killed.read_bytes().splitlines()) >= kill_at:
+                break
+            time.sleep(0.01)
+        else:
+            fail(f"the child study never reached {kill_at} journal "
+                 f"lines: " + proc.stderr.read().decode()[-2000:])
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        n_killed = len(read_events(str(killed)))
+        if not 0 < n_killed < len(read_events(str(first))):
+            fail(f"the killed journal holds {n_killed} events")
+        resumed = gups_study("hemem", device, scale).tune(
+            journal=str(killed), resume=True, **TS_KW)
+        out["d_s"] = time.perf_counter() - t0
+        proc = children["rerun"]
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail("the rerun of (c) in a child process did not finish in "
+                 "600 s")
+        if proc.returncode != 0:
+            fail("the rerun of (c) failed: "
+                 + proc.stderr.read().decode()[-2000:])
+        rerun_s = time.perf_counter() - t0
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+            proc.stderr.close()
+    for path in (rerun, killed):
+        if path.read_bytes() != first.read_bytes():
+            fail(f"{path.name}: the journal differs from (c)'s")
+    if resumed.trials != res.trials:
+        fail("the resumed study's trials differ from (c)'s")
+    if any(e["event"] == "fail" for e in read_events(str(first))):
+        fail("ASHA study: a trial failed")
+    journal_schema_ok(first, rerun, killed)
+    out["c"] = {
+        "makespan_s": res.makespan_s, "utilization": res.utilization,
+        "asha_epochs_saved_frac": res.asha_epochs_saved_frac,
+        "epochs_evaluated": res.epochs_evaluated,
+        "epochs_committed": res.epochs_committed,
+        "stopped_early": res.n_stopped_early, "launches": c_counts,
+        "best_s": res.best_value, "default_s": res.default_value,
+        "sync_q4_wall_s": bo_wall_s, "resume_makespan_s": resumed.makespan_s,
+        "rerun_child_s": rerun_s, "killed_after_events": n_killed}
+    print(f"tune service (c) ASHA budget 100, 4 thread slots: makespan "
+          f"{res.makespan_s:.3f} s, slot utilization "
+          f"{res.utilization:.4f}, asha_epochs_saved_frac "
+          f"{res.asha_epochs_saved_frac:.4f} ({res.n_stopped_early} "
+          f"stopped early), epochs evaluated {res.epochs_evaluated} = "
+          f"cluster launches, block {c_counts['block']}; incumbent "
+          f"{res.best_value:.4f} s against default "
+          f"{res.default_value:.4f} s "
+          f"({res.default_value / res.best_value:.4f}x); the sync "
+          f"Study.tune(budget=100, batch_size=4) of phase 6 (b) took "
+          f"{bo_wall_s:.3f} s; its rerun in a child process (beside (d), "
+          f"{rerun_s:.3f} s) journaled the same bytes; no failed trial, "
+          f"journals valid", flush=True)
+    print(f"tune service (c) seconds {out['c_s']:.3f}", flush=True)
+    print(f"tune service (d) child SIGKILLed after {n_killed} events, "
+          f"resumed here (makespan {resumed.makespan_s:.3f} s): journal "
+          f"byte-identical to (c)'s", flush=True)
+    print(f"tune service (d) seconds {out['d_s']:.3f}", flush=True)
+
+    # (e) process slots against thread slots
+    t0 = time.perf_counter()
+    twins = {}
+    for pool in ("thread", "process"):
+        path = TS_DIR / f"{pool}.jsonl"
+        t1 = time.perf_counter()
+        gups_study("hemem", device, scale).tune(journal=str(path), pool=pool,
+                                                **TS_PROC_KW)
+        twins[pool] = (path, time.perf_counter() - t1)
+    if twins["thread"][0].read_bytes() != twins["process"][0].read_bytes():
+        fail("process slots: the journal differs from thread slots'")
+    journal_schema_ok(twins["thread"][0], twins["process"][0])
+    out["e_s"] = time.perf_counter() - t0
+    out["e"] = {pool: wall for pool, (_, wall) in twins.items()}
+    print(f"tune service (e) 2 process slots (spawned, CUDA in each) == 2 "
+          f"thread slots, journals byte-identical (budget "
+          f"{TS_PROC_KW['budget']}): wall thread {twins['thread'][1]:.3f} "
+          f"s, process {twins['process'][1]:.3f} s", flush=True)
+    print(f"tune service (e) seconds {out['e_s']:.3f}", flush=True)
+
+    # (f) online re-tuning on drift-hotspot
+    t0 = time.perf_counter()
+    online = Study(ExperimentSpec(
+        engine="hemem",
+        workload=WorkloadSpec("drift-hotspot", scale=scale),
+        machine="pmem-large",
+        options=SimOptions(seed=0, crn=True, device=device)))
+    wl = online.workload()
+    runs = []
+    for i in range(2):
+        path = TS_DIR / f"online{i}.jsonl"
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        r = online.tune(online=True, window_epochs=ONLINE_W,
+                        batch_size=ONLINE_Q, seed=0, journal=str(path))
+        runs.append((r, topk_counts(), path, time.perf_counter() - t1))
+    r, counts, path, wall_s = runs[0]
+    if path.read_bytes() != runs[1][2].read_bytes():
+        fail("online: the rerun's journal differs")
+    if r.thrash_events != 0:
+        fail(f"online: {r.thrash_events} thrash events")
+    if counts["cluster"] != len(r.windows) * ONLINE_W:
+        fail(f"online: {counts['cluster']} cluster launches for "
+             f"{len(r.windows)} windows of {ONLINE_W}")
+    from repro_torch.core.drift import BUILTIN_DRIFTS
+    switch_epochs = BUILTIN_DRIFTS["drift-hotspot"].switch_epochs
+    readapt = []
+    for s in switch_epochs:
+        k0 = -(-s // ONLINE_W)
+        if not r.windows[k0].detect:
+            fail(f"online: the switch at epoch {s} was not detected in "
+                 f"window {k0}")
+        after = [w.index for w in r.windows[k0:] if w.switched]
+        readapt.append(after[0] - k0 if after else None)
+    default_ms = 1e3 * online.run().total_s
+    out["f_s"] = time.perf_counter() - t0
+    out["f"] = {
+        "n_pages": wl.n_pages, "windows": len(r.windows),
+        "detections": r.detections, "switches": r.switches,
+        "switch_windows": r.switch_windows, "guard_blocks": r.guard_blocks,
+        "thrash_events": r.thrash_events, "readapt_windows": readapt,
+        "deployed_wall_ms": r.total_wall_ms, "default_wall_ms": default_ms,
+        "launches": counts, "wall_s": wall_s}
+    print(f"tune service (f) online on drift-hotspot ({wl.n_pages} pages, "
+          f"switches at {list(switch_epochs)}), windows of {ONLINE_W}, q "
+          f"{ONLINE_Q}: {len(r.windows)} windows, detections "
+          f"{[w.index for w in r.windows if w.detect]}, config switches "
+          f"{r.switch_windows}, guard blocks {r.guard_blocks}, thrash 0; "
+          f"windows from a phase switch to the config switch {readapt}; "
+          f"deployed wall {r.total_wall_ms:.3f} ms against the default "
+          f"config's {default_ms:.3f} ms "
+          f"({default_ms / r.total_wall_ms:.4f}x); select_topk "
+          f"{json.dumps(counts)}; tuning wall {wall_s:.3f} s; journal "
+          f"rerun byte-identical", flush=True)
+    print(f"tune service (f) seconds {out['f_s']:.3f}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1992,7 +2345,18 @@ def phase_lm_prefill(spec=None):
         if not torch.equal(prefill(model, batch), logits):
             fail(f"{cfg.arch} prefill logits are not bitwise on a rerun")
         check = {"last_logits_bitwise_on_rerun": True}
-    prof = profile_prefill(prefill, model, batch, spec.get("ranges"))
+    # ``profile_seq`` profiles a prefill of the first tokens only, against
+    # its own unprofiled time: xlstm's per-position sLSTM loop launches
+    # ~140 kernels a token, which the profiler post-processes slowly
+    prof_batch, prof_ms = batch, prefill_ms
+    if spec.get("profile_seq"):
+        prof_batch = {"tokens": batch["tokens"][:, :spec["profile_seq"]]
+                      .contiguous()}
+        prof_ms = cuda_ms(lambda: prefill(model, prof_batch), reps=reps,
+                          warmup=1)
+    prof = profile_prefill(prefill, model, prof_batch, spec.get("ranges"))
+    prof["seq"] = prof_batch["tokens"].shape[1]
+    prof["unprofiled_ms"] = prof_ms
     if cfg.moe_experts:
         with Routing() as routes:
             prefill(model, batch)
@@ -2005,7 +2369,7 @@ def phase_lm_prefill(spec=None):
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
              "profile": prof,
              # the unprofiled prefill's CUDA-event time is the wall
-             "device_idle_share": 1 - prof["device_busy_ms"] / prefill_ms}
+             "device_idle_share": 1 - prof["device_busy_ms"] / prof_ms}
     print(f"LM prefill ({cfg.arch} full width, {cfg.n_layers} layers, "
           f"B={B}, S={S}): " + json.dumps(stats), flush=True)
     return model, launches, stats
@@ -2627,12 +2991,14 @@ RG = dict(arch="recurrentgemma-2b", batch=2, seq=4096, launch_batch=4,
 #: (batch, head)
 FLASH_RG = FLASH_CASES[-1]
 #: xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM; no
-#: attention, so no kernel): prefill of 4 x 2,048 tokens, the launcher as
-#: above; the profile reports the sLSTM loop's and the mLSTM chunks'
-#: shares.  Its prefill is host-bound (2,048 sLSTM steps a layer), so it
-#: is timed over 2 calls
-XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=512,
-          new_tokens=32, reps=2,
+#: attention, so no kernel): prefill of 4 x 2,048 tokens, the launcher
+#: teacher-forcing 4 x 256 tokens (a decode step costs the same at any
+#: position: the state is fixed-size; 512 took 29-48 s a call), then 32;
+#: the profile reports the sLSTM loop's and the mLSTM chunks' shares.
+#: Its prefill is host-bound (2,048 sLSTM steps a layer), so it is timed
+#: over 2 calls
+XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=256,
+          new_tokens=32, reps=2, profile_seq=512,
           ranges={"slstm": ("repro_torch.models.layers", "slstm_apply"),
                   "mlstm": ("repro_torch.models.layers", "mlstm_apply")})
 #: one layer of each recurrent kind at full width (RG-LRU at
@@ -2900,8 +3266,15 @@ def phase_recurrent_layers():
     return stats
 
 
+def stamp(label: str, t0: float) -> None:
+    """The script's elapsed seconds at the end of a group of phases."""
+    print(f"chip_smoke: {label} done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -2931,25 +3304,35 @@ def main() -> int:
                         or line.startswith("ptxas info    : Compiling")
                         or "spill" in line or "arning" in line), flush=True)
 
+    stamp("build", start)
     topk_timing = phase_select_topk("cuda")
+    stamp("select_topk", start)
     phase_small_reference()
     phase_study_run()
     tune_launches, tune_by_variant = phase_tune()
+    stamp("Study.run and Study.tune", start)
     acq_timing = phase_topk_mask()
     bo = phase_bo_tune()
+    stamp("topk_mask and the budget-100 tune", start)
     phase_fig2()
     phase_engine_sweep()
+    stamp("Fig. 2 and the engine sweep", start)
+    tune_service = phase_tune_service(bo["wall_s"])
+    stamp("the tune service and the online tuner", start)
     migrate_timing = phase_page_migrate()
     attention_timing = phase_paged_attention()
+    stamp("page_migrate and paged_attention", start)
     serving_launches, serving_by_variant, _, _ = phase_serving()
     phase_serving_small()
     phase_kv_study()
     phase_serving_tune()
+    stamp("serving", start)
     gc.collect()                      # the serving pools (~4.2 GB) go first
     torch.cuda.empty_cache()
     flash_timing = phase_flash_attention()
     model, prefill_launches, lm_stats = phase_lm_prefill()
     phase_lm_decode(model)
+    stamp("flash and chatglm3-6b serving", start)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2957,9 +3340,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     long_study_launches = phase_select_topk_long()
+    stamp("smoke configs card vs CPU and select_topk past 65,535", start)
     phase_train_card_vs_cpu()
     phase_train_full()
     phase_train_restart()
+    stamp("training", start)
     gc.collect()
     torch.cuda.empty_cache()
     flash_moe = phase_flash_shape(MOE["arch"], FLASH_MOE, "wgmma")
@@ -2969,11 +3354,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_tiered_params()
+    stamp("granite and the store", start)
     gc.collect()
     torch.cuda.empty_cache()
     flash_rg = phase_flash_shape(RG["arch"], FLASH_RG, "wgmma", old="mma")
     rg_model, rg_launches, rg_stats = phase_lm_prefill(RG)
     phase_lm_decode(rg_model, RG)
+    stamp("recurrentgemma-2b", start)
     del rg_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2981,10 +3368,12 @@ def main() -> int:
     if any(xl_launches.values()):
         fail(f"xlstm's prefill launched kernels: {xl_launches}")
     phase_lm_decode(xl_model, XL)
+    stamp("xlstm-1.3b", start)
     del xl_model
     gc.collect()
     torch.cuda.empty_cache()
     phase_recurrent_layers()
+    stamp("recurrent layers", start)
 
     def row(name, mod, timing, by_path):
         out = {
@@ -3015,12 +3404,18 @@ def main() -> int:
                        for v in tune_by_variant}
     topk_by_variant["cluster"] += long_study_launches
     topk_by_variant["block"] += bo["launches"]["block"]
+    for part in ("c", "f"):
+        for v, n in tune_service[part]["launches"].items():
+            topk_by_variant[v] += n
     kernels = [
         dict(row("select_topk", sk, topk_timing,
                  {"tune": tune_launches["select_topk"],
                   "serving": serving_launches["select_topk"],
                   "study_past_old_ceiling": long_study_launches,
-                  "acquisition": bo["launches"]["block"]}),
+                  "acquisition": bo["launches"]["block"],
+                  "async_tune": sum(tune_service["c"]["launches"].values()),
+                  "online_tune":
+                      sum(tune_service["f"]["launches"].values())}),
              launches_by_variant=topk_by_variant,
              cluster_size=sk.CLUSTER_SIZE,
              replay_shape_device_ms=topk_timing["replay_shape_device_ms"],
@@ -3028,7 +3423,8 @@ def main() -> int:
              acquisition_tune={k: bo[k] for k in (
                  "model_rounds", "swap_rounds", "split_tie_rounds",
                  "passes", "launches",
-                 "acquire_card_ms_median", "acquire_numpy_ms_median")}),
+                 "acquire_card_ms_median", "acquire_numpy_ms_median")},
+             tune_service=tune_service),
         row("page_migrate", pmk, migrate_timing,
             {"serving": serving_launches["page_migrate"]}),
         dict(row("paged_attention", pak, attention_timing,

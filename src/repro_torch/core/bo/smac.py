@@ -55,10 +55,18 @@ class SMACOptimizer:
                  n_init: int = 20, random_prob: float = 0.20,
                  n_candidates: int = 512, n_local_parents: int = 4,
                  n_trees: int = 24, start_with_default: bool = True,
+                 seed_configs: Optional[List[Config]] = None,
                  device="cuda"):
         """``device`` is where the model phase scores its candidate pool
         (:func:`~repro_torch.core.bo.forest_fast.acquisition_backend`):
-        the card for a CUDA device, numpy on the host for the CPU."""
+        the card for a CUDA device, numpy on the host for the CPU.
+
+        ``seed_configs`` warm-starts the optimizer: the given configs are
+        suggested FIRST (before the default config and the random initial
+        design), in order.  This is the online tuner's warm-restart hook:
+        after a detected workload phase change it opens a fresh optimizer
+        seeded with the prior one's elites, so the new phase's surrogate
+        is fit on re-evaluations of previously good configs."""
         self.space = space
         self.rng = np.random.default_rng(seed)
         self.n_init = n_init
@@ -69,6 +77,8 @@ class SMACOptimizer:
         self.start_with_default = start_with_default
         self.observations: List[Observation] = []
         self._surrogate: Optional[RandomForest] = None
+        self._seed_queue: List[Config] = [space.validate(c) for c
+                                          in (seed_configs or [])]
         self.device = device
         #: cumulative surrogate-fit wall clock (the tuner's per-round
         #: fit/acquisition breakdown reads deltas of this)
@@ -130,6 +140,8 @@ class SMACOptimizer:
 
     # -- suggestion -----------------------------------------------------------
     def ask(self) -> Config:
+        if self._seed_queue:  # warm-restart elites go out first
+            return dict(self._seed_queue.pop(0))
         n_seen = len(self.observations)
         if n_seen == 0 and self.start_with_default:
             return self.space.default_config()  # paper: start from default
@@ -174,10 +186,16 @@ class SMACOptimizer:
         (default config, initial random design, random interleaving) stay
         exploratory; the rest are the top-``q`` EI candidates from one
         shared pool.  ``q=1`` delegates to :meth:`ask`, preserving
-        bit-identical sequential histories.
+        bit-identical sequential histories.  Queued ``seed_configs`` fill
+        the head slots first.
         """
         if q < 1:
             raise ValueError("q must be >= 1")
+        if self._seed_queue:  # warm-restart elites fill the head slots
+            head = [dict(self._seed_queue.pop(0))
+                    for _ in range(min(q, len(self._seed_queue)))]
+            return head if len(head) == q \
+                else head + self.ask_batch(q - len(head))
         if q == 1:
             return [self.ask()]
         out: List[Config] = []

@@ -702,6 +702,41 @@ def carry_from_host(host_carry, device) -> Tuple:
             t(np.asarray(keys, dtype=np.uint32).astype(np.int64)))
 
 
+def broadcast_carry_row(carry, row: int, B: int) -> Tuple:
+    """ONE batch row of a host carry broadcast to a fresh ``B``-row host
+    carry (the online tuner's counterfactual hook: the deployed system's
+    state at a window start, row ``row``, becomes every candidate's
+    starting state).  The shared first-touch ``allocated`` vector has no
+    batch axis and passes through.
+
+    Only meaningful under CRN, where every row's base key is the same, so
+    copying row ``row``'s key changes no draw; without CRN the copied keys
+    would put every row on one noise stream.
+    """
+    in_fast, allocated, est, eng, cum, keys = carry
+
+    def pick(a):
+        return np.repeat(np.asarray(a)[row:row + 1], B, axis=0)
+
+    return (pick(in_fast), np.asarray(allocated), pick(est),
+            {k: pick(v) for k, v in eng.items()}, pick(cum), pick(keys))
+
+
+#: values per padded trace row: every row then starts 512 bytes apart, the
+#: alignment of a fresh allocation of the caching allocator
+TRACE_ROW_ALIGN = 128
+
+
+def _padded_rows(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` (T, n) on ``device`` with each row padded to a multiple of
+    :data:`TRACE_ROW_ALIGN` values (the pad is zero and never read)."""
+    T, n = a.shape
+    out = np.zeros((T, -(-n // TRACE_ROW_ALIGN) * TRACE_ROW_ALIGN),
+                   dtype=a.dtype)
+    out[:, :n] = a
+    return torch.from_numpy(out).to(device)
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; CUDA where there is none raises
     (the port never carries on quietly on the CPU)."""
@@ -755,9 +790,12 @@ def run_epochs(workload, engine_name: str,
     trace = [workload.epoch_access(e) for e in range(start, stop)]
     reads_np = np.stack([r for r, _ in trace]).astype(np.float32)
     writes_np = np.stack([w for _, w in trace]).astype(np.float32)
-    # the trace goes to the device once per segment
-    reads_t = torch.from_numpy(reads_np).to(device)
-    writes_t = torch.from_numpy(writes_np).to(device)
+    # the trace goes to the device once per segment, each epoch's row
+    # padded to TRACE_ROW_ALIGN values: CUDA reductions vectorize by the
+    # pointer's alignment, so a row at another offset sums in another
+    # order, and a segment would not equal the whole run bitwise
+    reads_t, writes_t = (_padded_rows(a, device) for a in (reads_np,
+                                                          writes_np))
     const = {k: _f32(v) for k, v in const.items()}
 
     edef = ENGINES.get(engine_name)(B, n, fast_cap, device)
@@ -771,7 +809,7 @@ def run_epochs(workload, engine_name: str,
         carry = carry_from_host(carry, device)
     outs = []
     for i, e in enumerate(range(start, stop)):
-        carry, o = step(carry, reads_t[i], writes_t[i], e, kv)
+        carry, o = step(carry, reads_t[i, :n], writes_t[i, :n], e, kv)
         outs.append(o)
     names = ["wall_ms", "cum_migrations", "hit_rate", "sampling_ms",
              "stall_ms"]

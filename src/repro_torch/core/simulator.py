@@ -10,7 +10,9 @@ unchanged).  :func:`run_simulation_batch` carries a batch of B candidate
 configurations through one shared workload trace in the torch epoch loop
 (:mod:`repro_torch.core.engine_torch`) on one device;
 :func:`run_simulation_cells` runs several ``(workload, engine, configs)``
-cells, one such pass each.
+cells, one such pass each; :func:`run_simulation_segment` evaluates an
+epoch range from a checkpointed carry (the tune service's and the online
+tuner's hook).
 
 Scaling: ``workload.scale`` shrinks the page count and access volume while
 time semantics stay real — effective bandwidth and memory-level parallelism
@@ -314,3 +316,56 @@ def run_simulation_batch(workload: Workload, engine_name: str,
         [(workload, engine_name, configs)], machine, fast_slow_ratio,
         [seeds], sampler, record_heatmap, heat_bins, fast_capacity_pages,
         crn, device)[0]
+
+
+def run_simulation_segment(workload: Workload, engine_name: str,
+                           configs: Sequence[Mapping[str, Any]],
+                           machine: "Machine | str" = PMEM_LARGE,
+                           fast_slow_ratio: float = 8.0,
+                           seeds=0,
+                           sampler: str = "sparse",
+                           fast_capacity_pages: Optional[int] = None,
+                           crn: bool = False,
+                           batch_offset: int = 0,
+                           epoch_start: int = 0,
+                           epoch_stop: Optional[int] = None,
+                           carry: Any = None,
+                           return_carry: bool = False,
+                           device="cuda") -> Dict[str, Any]:
+    """Partial-epoch evaluation on ``device`` -- the tune service's
+    checkpoint/restore hook.
+
+    Evaluates epochs ``[epoch_start, epoch_stop)`` of the workload (the
+    full range by default) and returns ``{"wall_ms": (seg, B) float64
+    array, "carry": host carry or None, "trace_reads", "trace_writes"}``
+    (the trace: the segment's ``(seg, n)`` float32 access counts).
+    Per-epoch walls are bitwise equal to the matching rows of a whole
+    :func:`run_simulation_batch` pass: draws are keyed by absolute epoch.
+    ``return_carry=True`` returns the host carry
+    (:func:`~repro_torch.core.engine_torch.carry_to_host`, picklable,
+    in the reference's layout); the next segment takes it as ``carry``
+    with ``epoch_start`` at this segment's stop.  ``crn=True`` gives every
+    row the first seed.
+    """
+    configs = [dict(c) for c in configs]
+    B = len(configs)
+    machine = _as_machine(machine)
+    if np.ndim(seeds) == 0:
+        seeds = [int(seeds)] * B
+    seeds = [int(s) for s in seeds]
+    if len(seeds) != B:
+        raise ValueError("seeds must be an int or one seed per config")
+    if crn:
+        seeds = [seeds[0]] * B
+    fast_cap = _fast_capacity(workload, fast_slow_ratio, fast_capacity_pages)
+    sim_cfgs = [scale_config(engine_name, c, workload.scale) for c in configs]
+    const = _epoch_consts(workload, engine_name, machine, PAGE_BYTES)
+    out = engine_torch.run_epochs(
+        workload, engine_name, sim_cfgs, const, fast_cap, PAGE_BYTES, seeds,
+        sampler, crn=crn, batch_offset=batch_offset, epoch_start=epoch_start,
+        epoch_stop=epoch_stop, carry=carry, return_carry=return_carry,
+        device=device)
+    return {"wall_ms": np.asarray(out["wall_ms"], dtype=np.float64),
+            "carry": out.get("carry"),
+            "trace_reads": out["trace_reads"],
+            "trace_writes": out["trace_writes"]}

@@ -110,6 +110,11 @@ class WorkloadSpec:
             return value
         if isinstance(value, str):
             return cls(value)
+        # a DriftSpec (phase-shifting trace) coerces by registering its
+        # composed workload; lazy import: drift.py imports this module
+        from .drift import DriftSpec
+        if isinstance(value, DriftSpec):
+            return cls(value.register())
         return cls.from_dict(value)
 
 

@@ -8,14 +8,20 @@ sweep.
   (:class:`~repro_torch.core.bo.tuner.TuningSession`), one batched
   simulator pass per round when ``batch_size > 1``; on a CUDA device the
   model phase scores its candidate pool on the card too;
+* ``Study(spec).tune(executor="async", slots=N, scheduler="asha",
+  journal=..., resume=...)`` — the asynchronous tune service
+  (:mod:`repro_torch.core.tune_service`);
+* ``Study(spec).tune(online=True, window_epochs=W)`` — online re-tuning
+  under drift (:mod:`repro_torch.core.tune_online`);
 * ``Study(spec).sweep(...)`` — multi-engine × multi-workload grids, each
   (engine, workload) cell one batched simulator pass.
 
 Workload traces are built once per Study and workload spec and shared
 across evaluations (builds are deterministic in the spec).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue item): ``tune(executor="async"|"fleet")`` and ``tune(online=True)``.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue
+item): ``tune(executor="fleet")`` and the fleet's socket pool, queue 1
+item 8c.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
 from .bo.tuner import TuningResult, TuningSession
+from .tune_service.faults import FaultPlan
 from .knobs import Config, KnobSpace
 from .simulator import (Machine, SimResult, get_machine,
                         run_simulation_batch, run_simulation_cells)
@@ -114,7 +121,17 @@ class Study:
              objective: Optional[Callable[[Config], float]] = None,
              objective_batch: Optional[
                  Callable[[Sequence[Config]], Sequence[float]]] = None,
-             executor: str = "sync", online: bool = False) -> TuningResult:
+             executor: str = "sync", slots: int = 1,
+             scheduler: Optional[str] = None,
+             journal: Optional[str] = None, resume: bool = False,
+             pool: str = "thread", eta: int = 4,
+             window: Optional[int] = None, retries: int = 1,
+             timeout_s: Optional[float] = None,
+             faults: Optional[FaultPlan] = None,
+             online: bool = False,
+             window_epochs: Optional[int] = None,
+             hysteresis: float = 0.05,
+             dwell_windows: int = 2) -> TuningResult:
         """SMAC-BO tuning of the spec's engine knobs (§3.1).
 
         ``seed`` seeds the optimizer; the simulation seed stays
@@ -140,18 +157,108 @@ class Study:
         space).  ``objective_batch`` (``[config] -> [float]``) is its
         vectorized counterpart for ``batch_size > 1``; without it the
         scalar objective is mapped over each round.
+
+        **Async tuning and resume** (``executor="async"``): the study is
+        handed to :class:`~repro_torch.core.tune_service.TuneService`.
+        ``slots`` evaluation slots stay saturated with trials (a new trial
+        is asked the moment the ask-ahead ``window``, default ``slots``,
+        has room); results are committed in canonical creation order and
+        every decision (ask, rung, tell) happens at commit time, so the
+        study is a deterministic function of its parameters however the
+        completions interleave.  At ``slots=1, scheduler=None`` it
+        reproduces the synchronous path bit-identically.
+
+        * ``pool`` -- ``"thread"`` (default: every slot shares this
+          process's card) or ``"process"`` (spawned workers, each
+          starting CUDA and loading the kernels itself);
+        * ``scheduler="asha"`` -- successive-halving early stopping over
+          1/4, 1/2 and full-epoch rungs (``eta`` the promotion fraction);
+          stopped trials are told their value extrapolated to full
+          budget, promoted ones resume from their rung's host carry.  Not
+          with a custom ``objective=``;
+        * ``journal=<path>`` -- the JSON-lines study journal (every
+          ask/eval/rung/tell/fail; ``tools/journal_schema.py`` validates
+          it).  ``resume=True`` re-runs the control loop with the journal
+          as an evaluation cache: a killed study's resumed journal is
+          byte-identical to an uninterrupted run's;
+        * ``retries`` -- per-trial retries of a failed segment before the
+          trial is journaled FAILED; ``timeout_s`` -- per-unit bound that
+          turns a hung evaluation into such a failure;
+        * ``faults`` -- a :class:`~repro_torch.core.tune_service.FaultPlan`
+          for the fleet executor, which is not ported yet (ROADMAP queue
+          1, item 8c): ``executor="fleet"`` and ``pool="socket"`` raise
+          ``NotImplementedError``.
+
+        It returns an
+        :class:`~repro_torch.core.tune_service.AsyncTuningResult` (the
+        trial table, slot utilization and ASHA savings beside the
+        history).
+
+        **Online re-tuning under drift** (``online=True,
+        window_epochs=W``): the study becomes the sliding-window control
+        loop of :mod:`repro_torch.core.tune_online`.  Every ``W`` epochs
+        ONE CRN segment evaluates ``[deployed] + batch_size`` candidates
+        from the deployed system's carry; a detected phase change
+        warm-restarts the optimizer from the prior elites; a switch is
+        applied only past the ``hysteresis`` margin and ``dwell_windows``
+        windows after the last one.  ``budget`` caps the candidate
+        evaluations.  Requires ``SimOptions(crn=True)``; ``journal=`` and
+        ``resume=`` give the async path's byte-identical kill/resume
+        contract.  Returns an
+        :class:`~repro_torch.core.tune_online.OnlineTuningResult`.
         """
+        if executor == "fleet" or pool == "socket":
+            raise NotImplementedError(
+                "the fleet executor and its socket pool are not ported yet "
+                "(ROADMAP queue 1, item 8c); use executor='async'")
         if online:
-            raise NotImplementedError(
-                "online re-tuning is not ported yet (ROADMAP queue 1, "
-                "item 'Async, fleet and online tuning')")
-        if executor in ("async", "fleet"):
-            raise NotImplementedError(
-                f"executor={executor!r} is not ported yet (ROADMAP queue 1, "
-                "item 'Async, fleet and online tuning')")
+            from .tune_online import OnlineTuner
+            if executor != "sync":
+                raise ValueError(
+                    "online=True runs its own window loop; it is "
+                    "incompatible with executor='async'/'fleet'")
+            if window_epochs is None:
+                raise ValueError(
+                    "online=True requires window_epochs=W (the re-tuning "
+                    "window length in epochs)")
+            if scheduler is not None or objective is not None \
+                    or objective_batch is not None:
+                raise ValueError(
+                    "online=True is incompatible with scheduler=/"
+                    "objective=: the window loop needs the simulator's "
+                    "segment checkpoints")
+            tuner = OnlineTuner(
+                self, window_epochs=window_epochs, batch_size=batch_size,
+                budget=budget, seed=seed, n_init=n_init,
+                hysteresis=hysteresis, dwell_windows=dwell_windows,
+                space=space, journal=journal, resume=resume,
+                verbose=verbose)
+            return tuner.run()
+        if window_epochs is not None:
+            raise ValueError("window_epochs requires online=True")
+        if executor == "async":
+            from .tune_service import TuneService
+            if batch_size != 1 or objective_batch is not None:
+                raise ValueError(
+                    "executor='async' replaces per-round batching with "
+                    "slot saturation; use slots=N instead of batch_size")
+            service = TuneService(
+                self, budget=budget, slots=slots, scheduler=scheduler,
+                seed=seed, optimizer=optimizer, n_init=n_init,
+                random_prob=random_prob, space=space, objective=objective,
+                journal=journal, resume=resume, pool=pool, eta=eta,
+                window=window, verbose=verbose, retries=retries,
+                timeout_s=timeout_s, faults=faults)
+            return service.run()
         if executor != "sync":
             raise ValueError(f"unknown executor {executor!r}; expected "
-                             f"'sync'")
+                             f"'sync', 'async' or 'fleet'")
+        if scheduler is not None or slots != 1 or journal is not None \
+                or resume or window is not None or timeout_s is not None \
+                or faults is not None:
+            raise ValueError(
+                "slots/scheduler/journal/resume/window/timeout_s/faults "
+                "require executor='async'")
 
         if objective is None:
             def objective(config: Config) -> float:

@@ -8,7 +8,10 @@ includes (``#include "x.cuh"``, followed through headers) and of the nvcc
 flags, so an edited kernel, header or flag never loads a stale build.
 :func:`build` starts one ``nvcc`` per source that is not built yet, all at
 once, and waits for all of them; each build's compiler output is kept
-beside its library (:func:`build_log`).
+beside its library (:func:`build_log`).  Building and loading hold one
+lock, so threads that load one kernel first run one ``nvcc`` between
+them.  :func:`count_launch` is the wrappers' launch counter, safe under
+threads too.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build outputs: ``<checkout>/build/`` (listed in .gitignore)
@@ -43,6 +47,10 @@ KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: held while building or loading (re-entrant: :func:`load` builds)
+_BUILD_LOCK = threading.RLock()
+#: held while a launch counter is read, bumped or reset
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -94,6 +102,11 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     ``nvcc`` each, all started together; returns each build's seconds
     (0.0 for a library that was already there).  Raises with the
     compiler's output if any build fails."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     seconds = {name: 0.0 for name in names}
@@ -124,9 +137,21 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
-    return lib
+    with _BUILD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib
+
+
+def count_launch(module, variant: Optional[str] = None) -> None:
+    """Add one to a kernel wrapper module's ``launches`` and, given
+    ``variant``, to its ``launches_by_variant[variant]``: the wrappers
+    launch from several threads at once (thread slots of the tune
+    service), and ``+=`` on shared state can lose counts."""
+    with COUNT_LOCK:
+        module.launches += 1
+        if variant is not None:
+            module.launches_by_variant[variant] += 1

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional
 
 import torch
@@ -182,7 +183,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``variant`` overrides :func:`pick_variant`'s choice; it exists to time one
     kernel against another at the same shape on the card (chip_smoke.py),
     not for users."""
-    global launches
     check_inputs(q, k, v, variant)
     device = q.device
     if device.type != "cuda":
@@ -195,6 +195,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     chosen = variant or pick_variant(q.dtype, q.shape[3])
     out = launch(_kernel(), q, k, v, chosen, causal=causal, window=window,
                  logit_softcap=logit_softcap)
-    launches += 1
-    launches_by_variant[chosen] += 1
+    build.count_launch(sys.modules[__name__], chosen)
     return out

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import build
 from . import flash_attention as fak
 from . import page_migrate as pmk
 from . import paged_attention as pak
@@ -141,22 +142,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    with build.COUNT_LOCK:
+        return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def launch_counts_by_variant() -> Dict[str, Dict[str, int]]:
     """Launches by variant of the kernels that have several (select_topk,
     paged_attention, flash_attention) since the last reset."""
-    return {name: dict(mod.launches_by_variant)
-            for name, mod in _KERNELS.items()
-            if hasattr(mod, "launches_by_variant")}
+    with build.COUNT_LOCK:
+        return {name: dict(mod.launches_by_variant)
+                for name, mod in _KERNELS.items()
+                if hasattr(mod, "launches_by_variant")}
 
 
 def reset_launch_counts() -> None:
     """Sets every kernel's launch count, and the counts by variant of the
     kernels that have several (``launches_by_variant``), to 0."""
-    for mod in _KERNELS.values():
-        mod.launches = 0
-        if hasattr(mod, "launches_by_variant"):
-            mod.launches_by_variant.update(
-                dict.fromkeys(mod.launches_by_variant, 0))
+    with build.COUNT_LOCK:
+        for mod in _KERNELS.values():
+            mod.launches = 0
+            if hasattr(mod, "launches_by_variant"):
+                mod.launches_by_variant.update(
+                    dict.fromkeys(mod.launches_by_variant, 0))

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 
 import torch
 
@@ -55,7 +56,6 @@ def page_migrate(dst, src, dst_ids, src_ids):
     """Launch the CUDA kernel: ``dst[dst_ids[i]] = src[src_ids[i]]`` in
     place (negative ids are no-ops, the last lane wins a shared
     destination); returns ``dst``."""
-    global launches
     device = dst.device
     if device.type != "cuda":
         raise ValueError(f"page_migrate kernel needs CUDA tensors, got "
@@ -101,5 +101,5 @@ def page_migrate(dst, src, dst_ids, src_ids):
     if err != 0:
         raise RuntimeError(f"page_migrate kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    build.count_launch(sys.modules[__name__])
     return dst

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional
 
 import torch
@@ -159,7 +160,6 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths,
     :func:`split_plan`'s; they exist to time one kernel or plan against
     another at the same shape on the card (chip_smoke.py), not for
     users."""
-    global launches
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"paged_attention kernel needs CUDA tensors, got "
@@ -269,6 +269,5 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths,
     if err != 0:
         raise RuntimeError(f"paged_attention {chosen} kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
-    launches_by_variant[chosen] += 1
+    build.count_launch(sys.modules[__name__], chosen)
     return out

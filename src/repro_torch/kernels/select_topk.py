@@ -31,6 +31,7 @@ entry of :data:`launches_by_variant`.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import torch
@@ -122,7 +123,6 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
     ``variant`` overrides :func:`pick_variant`'s choice; it exists to time
     one kernel against the other at the same shape on the card
     (chip_smoke.py), not for users."""
-    global launches
     device = p_mask.device
     if device.type != "cuda":
         raise ValueError(f"select_topk kernel needs CUDA tensors, got "
@@ -167,6 +167,5 @@ def select_topk(p_mask, p_heat, d_mask, d_heat, n_promote, n_demote, *,
     if err != 0:
         raise RuntimeError(f"select_topk {chosen} kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
-    launches_by_variant[chosen] += 1
+    build.count_launch(sys.modules[__name__], chosen)
     return pm, dm

@@ -95,3 +95,42 @@ def test_flash_ablations_apply_to_the_kernel_source():
         assert flash_ablation.ablated_source(text, old, new) != text, name
     with pytest.raises(RuntimeError, match="not found once"):
         flash_ablation.ablated_source(text, "no such text", "")
+
+
+def test_threads_loading_one_kernel_build_it_once(monkeypatch):
+    """8 threads that load one kernel first run one build between them
+    (``build`` names its temporary output by pid, so two concurrent builds
+    of one kernel would write the same file)."""
+    import sys
+    import threading
+    import time
+    calls = []
+
+    def fake_build(names):
+        calls.append(tuple(names))
+        time.sleep(0.05)            # a build the other threads overlap
+        return dict.fromkeys(names, 0.0)
+
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    got = []
+    barrier = threading.Barrier(8)
+
+    def load():
+        barrier.wait()
+        got.append(build.load("select_topk"))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=load) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [("select_topk",)]
+    assert len(got) == 8 and len(set(got)) == 1

@@ -542,3 +542,32 @@ def test_recurrent_layer_on_the_card_matches_the_cpu_path(cuda_device, kind,
         assert g.device.type == "cuda" and g.dtype == w.dtype
         err = (g.cpu().float() - w.float()).abs().max() / w.float().abs().max()
         assert float(err) <= tol
+
+
+@pytest.mark.parametrize("engine", ["hemem", "hmsdk", "memtis", "oracle"])
+def test_segments_equal_the_whole_run_on_the_card(cuda_device, engine):
+    """Carried segments equal the whole run bitwise on the card at a page
+    count that is not a multiple of 4 (655): each epoch's trace row must
+    start at the same alignment in both, as CUDA reductions vectorize by
+    the pointer's alignment."""
+    from repro_torch.core import simulator
+    from repro_torch.core.workloads import make_workload
+    wl = make_workload("gups", "8GiB-hot", threads=8, scale=0.02, seed=3)
+    cfgs = [{}, {}] if engine == "oracle" else None
+    if cfgs is None:
+        from repro_torch.core.knobs import get_space
+        space = get_space(engine)
+        cfgs = [space.default_config(),
+                space.sample(np.random.default_rng(5))]
+    kw = dict(seeds=3, crn=True, device=cuda_device)
+    whole = simulator.run_simulation_segment(wl, engine, cfgs,
+                                             return_carry=True, **kw)
+    parts, carry = [], None
+    for lo, hi in ((0, 15), (15, 31), (31, 60)):
+        out = simulator.run_simulation_segment(
+            wl, engine, cfgs, epoch_start=lo, epoch_stop=hi, carry=carry,
+            return_carry=True, **kw)
+        parts.append(out["wall_ms"])
+        carry = out["carry"]
+    assert np.array_equal(np.concatenate(parts), whole["wall_ms"])
+    assert np.array_equal(carry[4], whole["carry"][4])

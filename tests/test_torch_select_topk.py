@@ -135,6 +135,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.core.pages, repro_torch.core.engine\n"
         "import repro_torch.core.tiered_params\n"
+        "import repro_torch.core.tune_service, repro_torch.core.drift\n"
+        "import repro_torch.core.tune_online\n"
         "from repro_torch.configs import all_arch_ids, get_config\n"
         "[get_config(a) for a in all_arch_ids()]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -363,6 +365,39 @@ def test_select_topk_pick_variant_refuses_long_rows():
     for B, n in ((1, torch_kernel.MAX_N + 1), (-1, 8), (2, -3)):
         with pytest.raises(ValueError, match="at most"):
             torch_kernel.pick_variant(B, n)
+
+
+def test_launch_counts_hold_under_threads():
+    """8 threads x 1,000 counted launches through the wrappers' counting
+    helper count 8,000 (the tune service's thread slots launch
+    select_topk from several threads at once)."""
+    import threading
+    from repro_torch.kernels import build
+    ops.reset_launch_counts()
+    barrier = threading.Barrier(8)
+
+    def count():
+        barrier.wait()
+        for _ in range(1000):
+            build.count_launch(torch_kernel, "cluster")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=count) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    try:
+        assert ops.launch_counts()["select_topk"] == 8000
+        assert ops.launch_counts_by_variant()["select_topk"] == \
+            {"block": 0, "cluster": 8000}
+    finally:
+        ops.reset_launch_counts()
 
 
 def test_select_topk_variant_counts_reset():
