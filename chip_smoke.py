@@ -92,7 +92,23 @@ counts are printed at the end).
    drift-hotspot at scale 1.0 (switches at 20 and 40): zero thrash, each
    switch detected in the first window past it, 10 cluster launches a
    window, a journaled rerun byte-identical, the windows to re-adapt and
-   the deployed wall beside the default config's;
+   the deployed wall beside the default config's; then the fleet
+   (``phase_fleet``): (g1) (c)'s study with ``executor="fleet",
+   workers=4, pool="process"`` (spawned workers, each starting CUDA and
+   loading ``select_topk`` before it greets), journaled: trials, history,
+   incumbent and default bitwise (c)'s, no expired lease, death,
+   duplicate or degradation, the workers' ``cluster`` launches (the
+   receipt's ``kernel_launches``) equal to the epochs evaluated and the
+   coordinator's own launches the model-phase asks' ``block`` only;
+   makespan, utilization and epochs evaluated beside (c)'s; (g2) at (e)'s
+   budget on 2 workers, a clean fleet, then ``FaultPlan(kill=[(2, 0)])``
+   twice: journals byte-identical, one ``worker-dead`` expiry, one
+   respawn, trials the clean fleet's; (g3) a spec minted by ``python -m
+   repro_torch.launch.fleet --init`` and 2 workers its local mode starts:
+   trials the process fleet's, the key not in the journal; then
+   ``FaultPlan(truncate=[(2, 0)])`` twice on a socket fleet: journals
+   byte-identical with one ``truncated`` reject; every journal valid under
+   ``tools/journal_schema.py``;
 7. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
@@ -1377,6 +1393,195 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{json.dumps(counts)}; tuning wall {wall_s:.3f} s; journal "
           f"rerun byte-identical", flush=True)
     print(f"tune service (f) seconds {out['f_s']:.3f}", flush=True)
+    return out, res
+
+
+# ---------------------------------------------------------------------------
+# the fault-tolerant fleet: spawned workers on the card, its launcher
+# ---------------------------------------------------------------------------
+#: (g1): (c)'s study on 4 spawned process workers
+FLEET_KW = dict(TS_KW, executor="fleet", workers=4, pool="process")
+#: (g2) and (g3): TS_PROC_KW's study on 2 workers
+FLEET_SMALL_KW = dict(TS_PROC_KW, executor="fleet", workers=2)
+
+
+def fleet_receipt(res):
+    fs = res.fleet
+    return {k: fs[k] for k in (
+        "n_reissues", "n_expired_leases", "n_worker_deaths", "n_respawns",
+        "n_spare_promotions", "n_duplicate_results", "n_reconnects",
+        "n_rejected_frames", "degraded")}
+
+
+def clean_fleet(res, what):
+    r = fleet_receipt(res)
+    if r["n_expired_leases"] or r["n_worker_deaths"] or \
+            r["n_duplicate_results"] or r["degraded"]:
+        fail(f"{what}: the clean fleet's receipt {r}")
+
+
+def fleet_twins(what, kw, plan, scale, device, **more):
+    """Two journaled fleet studies under one fault plan: byte-identical
+    journals; returns both results and the first journal's events."""
+    from repro_torch.core.tune_service import read_events
+    runs, paths = [], []
+    for twin in range(2):
+        path = TS_DIR / f"{what}{twin}.jsonl"
+        t1 = time.perf_counter()
+        runs.append((gups_study("hemem", device, scale).tune(
+            journal=str(path), faults=plan, **kw, **more),
+            time.perf_counter() - t1))
+        paths.append(path)
+    if paths[0].read_bytes() != paths[1].read_bytes():
+        fail(f"{what}: the twin journals differ")
+    journal_schema_ok(*paths)
+    return runs, read_events(str(paths[0]))
+
+
+def phase_fleet(asha, device="cuda", scale=SCALE):
+    """(g1) (c)'s study on a clean 4-worker process fleet; (g2) kill
+    twins; (g3) a socket fleet from the launcher, and truncate twins."""
+    import os
+    import signal
+    from repro_torch.core.tune_service import FaultPlan, FleetSpec
+    from repro_torch.kernels import ops
+    out = {}
+
+    # (g1) the paper's budget on 4 spawned workers
+    t0 = time.perf_counter()
+    path = TS_DIR / "fleet.jsonl"
+    ops.reset_launch_counts()
+    res = gups_study("hemem", device, scale).tune(journal=str(path),
+                                                  **FLEET_KW)
+    own = topk_counts()
+    workers = dict(res.fleet["kernel_launches"]["select_topk"])
+    if res.trials != asha.trials or \
+            [(o.config, o.value) for o in res.history] != \
+            [(o.config, o.value) for o in asha.history] or \
+            res.best_value != asha.best_value or \
+            res.default_value != asha.default_value:
+        fail("(g1) the fleet's study differs from (c)'s async study")
+    clean_fleet(res, "(g1)")
+    if workers != {"block": 0, "cluster": res.epochs_evaluated}:
+        fail(f"(g1) the workers launched select_topk {workers}, expected "
+             f"{res.epochs_evaluated} cluster (one per epoch evaluated)")
+    if own["cluster"] != 0 or own["block"] == 0:
+        fail(f"(g1) the coordinator launched select_topk {own}: expected "
+             f"the model-phase asks' block launches only")
+    journal_schema_ok(path)
+    out["g1_s"] = time.perf_counter() - t0
+    out["g1"] = {
+        "makespan_s": res.makespan_s, "utilization": res.utilization,
+        "epochs_evaluated": res.epochs_evaluated,
+        "epochs_committed": res.epochs_committed,
+        "async_makespan_s": asha.makespan_s,
+        "async_epochs_evaluated": asha.epochs_evaluated,
+        "worker_launches": workers, "coordinator_launches": own,
+        "launches": {v: workers[v] + own[v] for v in workers},
+        "receipt": fleet_receipt(res), "best_s": res.best_value}
+    print(f"fleet (g1) ASHA budget {FLEET_KW['budget']} on "
+          f"{FLEET_KW['workers']} spawned process workers: "
+          f"trials, history, incumbent and default bitwise (c)'s; makespan "
+          f"{res.makespan_s:.3f} s against (c)'s {asha.makespan_s:.3f} s on "
+          f"4 thread slots ({asha.makespan_s / res.makespan_s:.3f}x), "
+          f"utilization {res.utilization:.4f}, epochs evaluated "
+          f"{res.epochs_evaluated} (async {asha.epochs_evaluated}: the "
+          f"promotions re-derive their prefixes) = the workers' cluster "
+          f"launches, the coordinator's block launches {own['block']}; "
+          f"receipt {json.dumps(fleet_receipt(res))}", flush=True)
+    print(f"fleet (g1) seconds {out['g1_s']:.3f}", flush=True)
+
+    # (g2) a clean fleet at TS_PROC_KW's budget, then kill twins
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    small = gups_study("hemem", device, scale).tune(**FLEET_SMALL_KW)
+    small_s = time.perf_counter() - t1
+    clean_fleet(small, "(g2) clean")
+    runs, events = fleet_twins("fleet_kill", FLEET_SMALL_KW,
+                               FaultPlan(kill=[(2, 0)]), scale, device)
+    for r, _ in runs:
+        if r.trials != small.trials:
+            fail("(g2) the killed fleet's trials differ from the clean "
+                 "fleet's")
+        rc = fleet_receipt(r)
+        if rc["n_worker_deaths"] != 1 or rc["n_respawns"] != 1:
+            fail(f"(g2) receipt {rc}")
+    expires = [(e["unit"], e["attempt"], e["reason"]) for e in events
+               if e["event"] == "expire"]
+    if expires != [(2, 0, "worker-dead")]:
+        fail(f"(g2) expiries {expires}")
+    out["g2_s"] = time.perf_counter() - t0
+    out["g2"] = {"clean_wall_s": small_s,
+                 "kill_wall_s": [w for _, w in runs],
+                 "receipt": fleet_receipt(runs[0][0]),
+                 "recover_s": runs[0][0].fleet["time_to_recover_s"]}
+    print(f"fleet (g2) budget {TS_PROC_KW['budget']} on 2 workers: clean "
+          f"{small_s:.3f} s; kill (2, 0) twins byte-identical "
+          f"({runs[0][1]:.3f} s, {runs[1][1]:.3f} s), one worker-dead "
+          f"expiry, one respawn, trials the clean fleet's; receipt "
+          f"{json.dumps(out['g2']['receipt'])}", flush=True)
+    print(f"fleet (g2) seconds {out['g2_s']:.3f}", flush=True)
+
+    # (g3) a socket fleet from the launcher, then truncate twins
+    t0 = time.perf_counter()
+    spec_path = TS_DIR / "fleet_spec.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    init = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fleet", str(spec_path),
+         "--init", "--workers", "2"], env=env, capture_output=True,
+        text=True, timeout=120)
+    if init.returncode != 0:
+        fail(f"launcher --init: {init.stdout}{init.stderr}")
+    spec = FleetSpec.load(str(spec_path))
+    launched = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.fleet", str(spec_path),
+         "--device", device], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        path = TS_DIR / "fleet_socket.jsonl"
+        t1 = time.perf_counter()
+        sock = gups_study("hemem", device, scale).tune(
+            journal=str(path), fleet_spec=spec,
+            **{k: v for k, v in FLEET_SMALL_KW.items() if k != "workers"})
+        sock_s = time.perf_counter() - t1
+        log, _ = launched.communicate(timeout=120)
+    finally:
+        if launched.poll() is None:  # SIGTERM: the launcher stops its
+            launched.send_signal(signal.SIGTERM)  # workers
+            try:
+                launched.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                launched.kill()
+                launched.communicate(timeout=30)
+    if launched.returncode != 0 or "all 2 workers greeted" not in log:
+        fail(f"launcher: exit {launched.returncode}\n{log[-2000:]}")
+    if sock.trials != small.trials:
+        fail("(g3) the socket fleet's trials differ from the process "
+             "fleet's")
+    clean_fleet(sock, "(g3)")
+    if spec.auth_key.encode() in path.read_bytes():
+        fail("(g3) the fleet's key is in the journal")
+    journal_schema_ok(path)
+    runs, events = fleet_twins("fleet_truncate", FLEET_SMALL_KW,
+                               FaultPlan(truncate=[(2, 0)]), scale, device,
+                               pool="socket")
+    rejects = [(e["unit"], e["attempt"], e["reason"]) for e in events
+               if e["event"] == "reject"]
+    if rejects != [(2, 0, "truncated")]:
+        fail(f"(g3) rejects {rejects}")
+    for r, _ in runs:
+        if r.trials != small.trials:
+            fail("(g3) the truncated fleet's trials differ")
+    out["g3_s"] = time.perf_counter() - t0
+    out["g3"] = {"launcher_wall_s": sock_s,
+                 "truncate_wall_s": [w for _, w in runs],
+                 "receipt": fleet_receipt(runs[0][0])}
+    print(f"fleet (g3) socket fleet of 2 launcher workers (spec from "
+          f"--init) {sock_s:.3f} s, trials the process fleet's; truncate "
+          f"(2, 0) twins byte-identical ({runs[0][1]:.3f} s, "
+          f"{runs[1][1]:.3f} s), one reject (truncated); journals valid",
+          flush=True)
+    print(f"fleet (g3) seconds {out['g3_s']:.3f}", flush=True)
     return out
 
 
@@ -3317,8 +3522,11 @@ def main() -> int:
     phase_fig2()
     phase_engine_sweep()
     stamp("Fig. 2 and the engine sweep", start)
-    tune_service = phase_tune_service(bo["wall_s"])
+    tune_service, asha = phase_tune_service(bo["wall_s"])
     stamp("the tune service and the online tuner", start)
+    fleet = phase_fleet(asha)
+    del asha
+    stamp("the fleet", start)
     migrate_timing = phase_page_migrate()
     attention_timing = phase_paged_attention()
     stamp("page_migrate and paged_attention", start)
@@ -3407,6 +3615,8 @@ def main() -> int:
     for part in ("c", "f"):
         for v, n in tune_service[part]["launches"].items():
             topk_by_variant[v] += n
+    for v, n in fleet["g1"]["launches"].items():
+        topk_by_variant[v] += n
     kernels = [
         dict(row("select_topk", sk, topk_timing,
                  {"tune": tune_launches["select_topk"],
@@ -3415,7 +3625,8 @@ def main() -> int:
                   "acquisition": bo["launches"]["block"],
                   "async_tune": sum(tune_service["c"]["launches"].values()),
                   "online_tune":
-                      sum(tune_service["f"]["launches"].values())}),
+                      sum(tune_service["f"]["launches"].values()),
+                  "fleet_tune": sum(fleet["g1"]["launches"].values())}),
              launches_by_variant=topk_by_variant,
              cluster_size=sk.CLUSTER_SIZE,
              replay_shape_device_ms=topk_timing["replay_shape_device_ms"],
@@ -3424,7 +3635,7 @@ def main() -> int:
                  "model_rounds", "swap_rounds", "split_tie_rounds",
                  "passes", "launches",
                  "acquire_card_ms_median", "acquire_numpy_ms_median")},
-             tune_service=tune_service),
+             tune_service=tune_service, fleet=fleet),
         row("page_migrate", pmk, migrate_timing,
             {"serving": serving_launches["page_migrate"]}),
         dict(row("paged_attention", pak, attention_timing,

@@ -65,8 +65,15 @@ NUMA = Machine("numa", cores=20, near_bw_gbs=56.0,
                far_bw_read_gbs=36.0, far_bw_write_gbs=36.0,
                near_lat_ns=95.0, far_lat_ns=145.0,
                sample_us=0.8, scan_us=0.05, default_threads=12)
+#: TPU v5e chip with host-DRAM offload over PCIe, the reference's modeled
+#: two-tier system (a profile of the simulator, not a measurement).
+#: "Threads" = the single decode stream; MLP comes from DMA queue depth.
+TPU_V5E_HOST = Machine("tpu-v5e-host", cores=1, near_bw_gbs=819.0,
+                       far_bw_read_gbs=16.0, far_bw_write_gbs=16.0,
+                       near_lat_ns=600.0, far_lat_ns=2500.0,
+                       sample_us=0.05, scan_us=0.05, default_threads=1)
 
-for _m in (PMEM_LARGE, PMEM_SMALL, NUMA):
+for _m in (PMEM_LARGE, PMEM_SMALL, NUMA, TPU_V5E_HOST):
     register_machine(_m)
 
 

@@ -125,9 +125,14 @@ class Study:
              scheduler: Optional[str] = None,
              journal: Optional[str] = None, resume: bool = False,
              pool: str = "thread", eta: int = 4,
-             window: Optional[int] = None, retries: int = 1,
+             window: Optional[int] = None,
+             workers: Optional[int] = None, retries: int = 1,
              timeout_s: Optional[float] = None,
              faults: Optional[FaultPlan] = None,
+             heartbeat_s: Optional[float] = None,
+             lease_deadline: Optional[int] = None,
+             max_respawns: Optional[int] = None,
+             fleet_spec: Optional[Any] = None,
              online: bool = False,
              window_epochs: Optional[int] = None,
              hysteresis: float = 0.05,
@@ -183,16 +188,58 @@ class Study:
           byte-identical to an uninterrupted run's;
         * ``retries`` -- per-trial retries of a failed segment before the
           trial is journaled FAILED; ``timeout_s`` -- per-unit bound that
-          turns a hung evaluation into such a failure;
-        * ``faults`` -- a :class:`~repro_torch.core.tune_service.FaultPlan`
-          for the fleet executor, which is not ported yet (ROADMAP queue
-          1, item 8c): ``executor="fleet"`` and ``pool="socket"`` raise
-          ``NotImplementedError``.
+          turns a hung evaluation into such a failure.
 
         It returns an
         :class:`~repro_torch.core.tune_service.AsyncTuningResult` (the
         trial table, slot utilization and ASHA savings beside the
         history).
+
+        **Fault-tolerant fleet tuning** (``executor="fleet",
+        workers=N``): the same deterministic control loop, its slots N
+        worker processes behind a lease-and-commit coordinator
+        (:class:`~repro_torch.core.tune_service.FleetExecutor`).  Workers
+        always start by spawn, and each starts CUDA on
+        ``spec.options.device`` and loads ``select_topk`` before it
+        greets; units are leased to greeted workers only.  A worker
+        heartbeats its unit every ``heartbeat_s``; a lease silent for
+        ``lease_deadline`` heartbeats, a dead worker or a lost result
+        expires it and the unit is re-issued (at most four attempts).
+        Duplicate execution is safe because a unit is a pure function of
+        its coordinates: the first result commits and a late twin is
+        asserted bitwise equal.  Lease events (``lease``/``expire``/
+        ``reissue``/``reject``/``reconnect``) are journaled at the unit's
+        commit, so fault twins and a SIGKILLed coordinator's resume are
+        byte-identical.  The result's ``fleet`` receipt holds the
+        re-issue, death, respawn and reject counts and the workers'
+        ``kernel_launches``.
+
+        * ``workers`` -- fleet size (default ``slots``); ``pool``
+          ``"process"`` (spawned on this host, one hot spare) or
+          ``"socket"`` (workers dial in over TCP: ``python -m
+          repro_torch.core.tune_service.worker --connect HOST:PORT``);
+        * ``fleet_spec`` -- a frozen
+          :class:`~repro_torch.core.tune_service.FleetSpec` (implies
+          ``pool="socket"``): the bind address, the shared ``auth_key``
+          every frame is HMAC-signed with, the worker count and hosts,
+          heartbeat, lease and frame caps; ``python -m
+          repro_torch.launch.fleet`` mints one (``--init``) and starts or
+          prints its workers.  The key never enters the journal;
+        * ``scheduler="asha"`` composes with the fleet: a rung unit
+          re-derives ``[0, hi)`` from scratch (no carry crosses the
+          transport), so the trials equal the local slots' bitwise;
+        * ``heartbeat_s`` / ``lease_deadline`` / ``max_respawns`` --
+          heartbeat cadence, the lease deadline in missed heartbeats, and
+          the respawn budget for dead process workers; at zero live
+          workers the coordinator runs units on a local slot (slower,
+          never wedged);
+        * ``faults`` -- a :class:`~repro_torch.core.tune_service.FaultPlan`
+          of injected worker and network faults keyed by unit and
+          attempt (:mod:`repro_torch.core.tune_service.faults`).
+
+        A script that uses ``pool="process"`` (either executor) needs the
+        ``if __name__ == "__main__":`` guard: spawned workers import the
+        main module again.
 
         **Online re-tuning under drift** (``online=True,
         window_epochs=W``): the study becomes the sliding-window control
@@ -207,10 +254,6 @@ class Study:
         contract.  Returns an
         :class:`~repro_torch.core.tune_online.OnlineTuningResult`.
         """
-        if executor == "fleet" or pool == "socket":
-            raise NotImplementedError(
-                "the fleet executor and its socket pool are not ported yet "
-                "(ROADMAP queue 1, item 8c); use executor='async'")
         if online:
             from .tune_online import OnlineTuner
             if executor != "sync":
@@ -236,7 +279,7 @@ class Study:
             return tuner.run()
         if window_epochs is not None:
             raise ValueError("window_epochs requires online=True")
-        if executor == "async":
+        if executor in ("async", "fleet"):
             from .tune_service import TuneService
             if batch_size != 1 or objective_batch is not None:
                 raise ValueError(
@@ -247,18 +290,25 @@ class Study:
                 seed=seed, optimizer=optimizer, n_init=n_init,
                 random_prob=random_prob, space=space, objective=objective,
                 journal=journal, resume=resume, pool=pool, eta=eta,
-                window=window, verbose=verbose, retries=retries,
-                timeout_s=timeout_s, faults=faults)
+                window=window, verbose=verbose,
+                executor="fleet" if executor == "fleet" else "local",
+                workers=workers, retries=retries, timeout_s=timeout_s,
+                faults=faults, heartbeat_s=heartbeat_s,
+                lease_deadline=lease_deadline, max_respawns=max_respawns,
+                fleet_spec=fleet_spec)
             return service.run()
         if executor != "sync":
             raise ValueError(f"unknown executor {executor!r}; expected "
                              f"'sync', 'async' or 'fleet'")
         if scheduler is not None or slots != 1 or journal is not None \
-                or resume or window is not None or timeout_s is not None \
-                or faults is not None:
+                or resume or window is not None or workers is not None \
+                or timeout_s is not None or faults is not None \
+                or heartbeat_s is not None or lease_deadline is not None \
+                or max_respawns is not None or fleet_spec is not None:
             raise ValueError(
-                "slots/scheduler/journal/resume/window/timeout_s/faults "
-                "require executor='async'")
+                "slots/scheduler/journal/resume/window/workers/timeout_s/"
+                "faults/heartbeat_s/lease_deadline/max_respawns/fleet_spec "
+                "require executor='async' or 'fleet'")
 
         if objective is None:
             def objective(config: Config) -> float:

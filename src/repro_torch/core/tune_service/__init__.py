@@ -1,7 +1,7 @@
 """Asynchronous trial-executor tuning service of the PyTorch port
 (deterministic, resumable, fault-tolerant).
 
-The package behind ``Study.tune(executor="async", slots=N,
+The package behind ``Study.tune(executor="async"|"fleet", slots=N,
 scheduler="asha"|None, journal=..., resume=...)``:
 
 * :mod:`.trial` -- the PENDING/RUNNING/PAUSED/TERMINATED/FAILED trial state
@@ -10,6 +10,18 @@ scheduler="asha"|None, journal=..., resume=...)``:
 * :mod:`.executor` -- N saturated evaluation slots (threads, or processes
   started by spawn) with results committed in canonical unit-creation
   order;
+* :mod:`.coordinator` + :mod:`.worker` -- the multi-host rung: a
+  lease-and-commit coordinator serving ONE shared work queue to worker
+  processes (always spawned; each warms the card up before it greets),
+  with heartbeats, straggler re-issue (duplicate execution is safe --
+  first commit wins, the twin is asserted bitwise equal), bounded
+  respawns, worker reconnect-with-backoff and graceful degradation to a
+  local slot;
+* :mod:`.transport` -- the authenticated socket frame codec (HMAC-signed,
+  length-capped, replay-protected, bounded reads; the reference's frames
+  byte for byte) plus the frozen-JSON
+  :class:`~repro_torch.core.tune_service.transport.FleetSpec` that
+  ``python -m repro_torch.launch.fleet`` deploys fleets from;
 * :mod:`.faults` -- the fault-injection harness (worker and network
   injections keyed by deterministic unit coordinates, and flaky
   objectives);
@@ -19,27 +31,32 @@ scheduler="asha"|None, journal=..., resume=...)``:
   by replaying the deterministic control loop against the journal as an
   evaluation cache, byte-identically;
 * :mod:`.service` -- the control loop tying the above together.
-
-The fleet executor (the reference's coordinator, worker and socket
-transport) is not ported yet (ROADMAP queue 1, item 8c).
 """
 
 from .asha import ASHAScheduler, PROMOTE, RUNG_FRACTIONS, STOP
+from .coordinator import FleetExecutor
 from .executor import MAX_POOL_REBUILDS, TrialExecutor
 from .faults import (FailNTimes, FaultPlan, KillNTimes, NO_FAULTS,
                      SlowObjective, tear_journal)
 from .journal import StudyJournal, VERSION, read_events
 from .service import AsyncTuningResult, TuneService
+from .transport import (FleetSpec, FrameChannel, FrameError,
+                        FrameReplayError, FrameSignatureError,
+                        FrameTimeoutError, FrameTooLargeError,
+                        FrameTruncatedError)
 from .trial import (FAILED, PAUSED, PENDING, RUNNING, TERMINATED,
                     TRANSITIONS, Trial)
 
 __all__ = [
     "ASHAScheduler", "PROMOTE", "RUNG_FRACTIONS", "STOP",
-    "MAX_POOL_REBUILDS", "TrialExecutor",
+    "FleetExecutor", "MAX_POOL_REBUILDS", "TrialExecutor",
     "FailNTimes", "FaultPlan", "KillNTimes", "NO_FAULTS",
     "SlowObjective", "tear_journal",
     "StudyJournal", "VERSION", "read_events",
     "AsyncTuningResult", "TuneService",
+    "FleetSpec", "FrameChannel", "FrameError", "FrameReplayError",
+    "FrameSignatureError", "FrameTimeoutError", "FrameTooLargeError",
+    "FrameTruncatedError",
     "FAILED", "PAUSED", "PENDING", "RUNNING", "TERMINATED",
     "TRANSITIONS", "Trial",
 ]

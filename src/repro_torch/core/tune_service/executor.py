@@ -49,7 +49,7 @@ import multiprocessing
 import time
 import traceback
 from concurrent.futures import BrokenExecutor
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 POOLS = ("thread", "process")
 
@@ -203,6 +203,11 @@ class TrialExecutor:
                 continue  # replay cache hit: no evaluation to redo
             fn, args, _ = self._specs[seq]
             self._futures[seq] = self._pool.submit(_timed_safe, fn, *args)
+
+    def take_history(self, seq: int) -> List[Dict[str, Any]]:
+        """Lease lifecycle events for commit-time journaling.  Local slots
+        have no leases -- the fleet coordinator overrides this."""
+        return []
 
     def _stop_pool(self) -> None:
         """Shut the process pool down and stop its workers: an idle worker

@@ -1,7 +1,7 @@
 """Fault-injection harness for the tune-service fleet (a copy of the
-reference package's module, network injections included, for the fleet
-executor still to be ported; the flaky objectives below drive the local
-executor's tests now).
+reference package's module, network injections included; the fleet's
+workers apply the plan, and the flaky objectives below drive the local
+executor's tests).
 
 Robustness claims are only as good as the faults they were tested under,
 so the fleet's test matrix is driven from here: a :class:`FaultPlan` is a

@@ -1,9 +1,11 @@
 """TuneService: the deterministic asynchronous tuning control loop (the
 reference package's service, on the port's epoch loop).
 
-``Study.tune(executor="async", ...)`` lands here.  The service owns the
-optimizer (SMAC / random), the optional ASHA scheduler, the study journal
-and a :class:`~repro_torch.core.tune_service.executor.TrialExecutor`, and
+``Study.tune(executor="async"|"fleet", ...)`` lands here.  The service
+owns the optimizer (SMAC / random), the optional ASHA scheduler, the study
+journal and a :class:`~repro_torch.core.tune_service.executor.TrialExecutor`
+(or, under ``executor="fleet"``, a
+:class:`~repro_torch.core.tune_service.coordinator.FleetExecutor`), and
 drives them with ONE invariant: **every decision happens at canonical
 commit time**.  Work units (trial evaluation segments) are created in a
 deterministic order; the executor runs them on whichever slot frees first
@@ -26,8 +28,12 @@ once every member lands, in trial-index order.  Singleton groups use plain
 ``tell`` (matching the sequential loop).
 
 Each segment runs :func:`~repro_torch.core.simulator.run_simulation_segment`
-on the spec's device; a trial promoted by ASHA resumes from its rung's
-host carry, so the card simulates every epoch of a study once.
+on the spec's device; on local slots a trial promoted by ASHA resumes from
+its rung's host carry, so the card simulates every epoch of a study once.
+Under the fleet no carry crosses the transport: a rung unit re-derives
+``[0, hi)`` from scratch (segmented equals unsegmented bitwise), so the
+study's decisions are the local slots' and the card simulates the
+promoted trials' prefixes again.
 """
 
 from __future__ import annotations
@@ -51,6 +57,12 @@ from .journal import VERSION, StudyJournal
 from .trial import FAILED, PAUSED, RUNNING, TERMINATED, Trial
 
 SCHEDULERS = (None, "asha")
+EXECUTORS = ("local", "fleet")
+
+#: fleet lease lifecycle event types (journaled at unit commit time);
+#: ``reject`` (an invalid frame killed the lease) and ``reconnect`` (a
+#: re-greeted worker re-attached its live lease) ride along
+HISTORY_EVENTS = ("lease", "expire", "reissue", "reject", "reconnect")
 
 
 def _jsonify(obj):
@@ -126,6 +138,10 @@ class AsyncTuningResult(TuningResult):
     makespan_s: float = 0.0             # submit-to-last-commit wall clock
     journal_path: Optional[str] = None
     resumed: bool = False
+    #: fleet receipt (:meth:`FleetExecutor.stats`): re-issue counts,
+    #: worker deaths/respawns, re-issue overhead, time-to-recover, the
+    #: workers' kernel launches
+    fleet: Optional[Dict[str, Any]] = None
 
     @property
     def utilization(self) -> float:
@@ -169,8 +185,8 @@ class AsyncTuningResult(TuningResult):
 class TuneService:
     """One asynchronous tuning study; see the module docstring.
 
-    Built and run by ``Study.tune(executor="async")`` -- not usually
-    constructed directly.
+    Built and run by ``Study.tune(executor="async"|"fleet")`` -- not
+    usually constructed directly.
     """
 
     def __init__(self, study, *, budget: int = 100, slots: int = 1,
@@ -183,8 +199,13 @@ class TuneService:
                  pool: str = "thread", eta: int = 4,
                  window: Optional[int] = None,
                  verbose: bool = False,
+                 executor: str = "local", workers: Optional[int] = None,
                  retries: int = 1, timeout_s: Optional[float] = None,
-                 faults: FaultPlan = NO_FAULTS):
+                 faults: FaultPlan = NO_FAULTS,
+                 heartbeat_s: Optional[float] = None,
+                 lease_deadline: Optional[int] = None,
+                 max_respawns: Optional[int] = None,
+                 fleet_spec=None):
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; expected "
                              f"one of {SCHEDULERS}")
@@ -195,6 +216,27 @@ class TuneService:
                 "objective= or use scheduler=None")
         if resume and journal is None:
             raise ValueError("resume=True requires journal=<path>")
+        if executor not in EXECUTORS:
+            raise ValueError(f"unknown executor {executor!r}; expected "
+                             f"one of {EXECUTORS}")
+        if fleet_spec is not None and executor != "fleet":
+            raise ValueError("fleet_spec= requires executor='fleet'")
+        if executor == "fleet":
+            from .coordinator import FLEET_POOLS
+            if workers is not None:
+                slots = int(workers)
+            if fleet_spec is not None:
+                # the spec is the deployment artifact: it fixes the pool
+                # (socket), the worker count and the heartbeat/lease
+                # parameters the workers were launched with
+                pool = "socket"
+                slots = fleet_spec.workers
+                if heartbeat_s is None:
+                    heartbeat_s = fleet_spec.heartbeat_s
+                if lease_deadline is None:
+                    lease_deadline = fleet_spec.lease_deadline
+            elif pool not in FLEET_POOLS:
+                pool = "process"  # fleet workers are remote by definition
         self.study = study
         self.spec = study.spec
         self.budget = int(budget)
@@ -210,16 +252,21 @@ class TuneService:
         self.scheduler_name = scheduler
         self.seed = int(seed)
         self.pool = pool
+        self.executor_kind = executor
         self.verbose = verbose
         self.objective = objective
         self.retries = int(retries)
         self.timeout_s = timeout_s
-        #: injected worker faults: kept for the fleet executor (ROADMAP
-        #: queue 1 item 8c); local slots inject none
+        #: injected worker faults (the fleet's workers apply them; local
+        #: slots inject none)
         self.faults = faults if faults is not None else NO_FAULTS
-        # process slots evaluate in other processes, so units ship the
-        # workload spec tuple rather than the built object
-        self._ship_spec = pool == "process"
+        self.heartbeat_s = heartbeat_s
+        self.lease_deadline = lease_deadline
+        self.max_respawns = max_respawns
+        self.fleet_spec = fleet_spec
+        # fleet workers (and process slots) evaluate in other processes, so
+        # units ship the workload spec tuple rather than the built object
+        self._ship_spec = pool in ("process", "socket")
         self.crn = bool(self.spec.options.crn)
         self.space = space if space is not None \
             else get_space(self.spec.engine.name)
@@ -241,7 +288,7 @@ class TuneService:
             if journal is not None else None
         self.resumed = bool(resume)
         # header params journaled for the replay-divergence guard (the
-        # reference's keys; only the local executor exists here)
+        # reference's keys and values)
         self._header = {
             "event": "study", "version": VERSION,
             "spec": _jsonify(self.spec.to_dict()),
@@ -253,15 +300,24 @@ class TuneService:
             "optimizer": optimizer, "opt_seed": self.seed,
             "n_init": int(n_init), "random_prob": float(random_prob),
             "custom_objective": objective is not None,
-            "executor": "local", "retries": self.retries,
-            "lease_deadline": None, "timeout_s": self.timeout_s,
+            "executor": self.executor_kind, "retries": self.retries,
+            # the lease deadline is a heartbeat COUNT (wall-clock-free);
+            # None defers to the coordinator default
+            "lease_deadline": self.lease_deadline,
+            "timeout_s": self.timeout_s,
         }
         self._machine = study.machine
         opts = self.spec.options
         # promoted trials resume from their rung's host carry; the epoch
-        # loop checkpoints every engine, sampler and size it runs
-        self._can_checkpoint = objective is None and engine_torch.supports(
-            self.spec.engine.name, opts.sampler, self.workload.n_pages)
+        # loop checkpoints every engine, sampler and size it runs.  Not
+        # under the fleet: a rung unit re-derives [0, hi) from scratch
+        # (exact: segmented equals unsegmented bitwise), which keeps each
+        # unit a pure function of (config, hi) -- re-issue and
+        # first-commit-wins compose with promotion unchanged -- and keeps
+        # result frames small (a carry holds per-page arrays)
+        self._can_checkpoint = objective is None and \
+            executor != "fleet" and engine_torch.supports(
+                self.spec.engine.name, opts.sampler, self.workload.n_pages)
         # bookkeeping
         self._units: Dict[int, Dict[str, Any]] = {}
         self._trials: List[Trial] = []
@@ -270,7 +326,7 @@ class TuneService:
         self._asked = 0
         self._default_value: Optional[float] = None
         self._epochs_evaluated = 0
-        self.executor: Optional[TrialExecutor] = None
+        self.executor = None
 
     # -- unit construction -------------------------------------------------
     def _segment_payload(self, config, lo: int, hi: int, carry
@@ -388,8 +444,22 @@ class TuneService:
             return event
         return self.journal.append(event)
 
+    def _journal_history(self, seq: int, unit: Dict[str, Any]) -> None:
+        """Journal the unit's fleet lease history (lease/expire/reissue) at
+        its commit point -- the only place those events are deterministic.
+        Live units re-generated their histories and append strictly; a
+        replay cache hit never re-executed, so its recorded history is
+        adopted verbatim."""
+        if unit.get("cached"):
+            if self.journal is not None:
+                self.journal.consume_history(HISTORY_EVENTS, unit=seq)
+            return
+        for ev in self.executor.take_history(seq):
+            self._journal(ev)
+
     def _commit(self, seq: int, result: Dict[str, Any]) -> None:
         unit = self._units.pop(seq)
+        self._journal_history(seq, unit)
         t: Optional[Trial] = unit.get("trial")
         if t is None:  # the default-config baseline
             if "error" in result:
@@ -505,8 +575,24 @@ class TuneService:
     def run(self) -> AsyncTuningResult:
         t0 = time.time()
         self._journal(self._header)
-        self.executor = TrialExecutor(self.slots, self.pool,
-                                      timeout_s=self.timeout_s)
+        if self.executor_kind == "fleet":
+            from .coordinator import FleetExecutor
+            kw: Dict[str, Any] = {"timeout_s": self.timeout_s,
+                                  "faults": self.faults,
+                                  "device": self.spec.options.device}
+            if self.heartbeat_s is not None:
+                kw["heartbeat_s"] = self.heartbeat_s
+            if self.lease_deadline is not None:
+                kw["lease_deadline"] = self.lease_deadline
+            if self.max_respawns is not None:
+                kw["max_respawns"] = self.max_respawns
+            if self.fleet_spec is not None:
+                kw["fleet_spec"] = self.fleet_spec  # never journaled: the
+                # spec carries the fleet's shared auth key
+            self.executor = FleetExecutor(self.slots, pool=self.pool, **kw)
+        else:
+            self.executor = TrialExecutor(self.slots, self.pool,
+                                          timeout_s=self.timeout_s)
         try:
             mk0 = time.perf_counter()
             # the default-config baseline evaluates first, exactly like the
@@ -531,7 +617,9 @@ class TuneService:
                                      if r["state"] == TERMINATED),
                 epochs_evaluated=self._epochs_evaluated,
                 busy_s=self.executor.busy_s, makespan_s=makespan,
-                journal_path=self.journal_path, resumed=self.resumed)
+                journal_path=self.journal_path, resumed=self.resumed,
+                fleet=self.executor.stats()
+                if self.executor_kind == "fleet" else None)
             best = result.best_row
             self._journal({
                 "event": "done", "best_trial": best["index"],

@@ -571,3 +571,34 @@ def test_segments_equal_the_whole_run_on_the_card(cuda_device, engine):
         carry = out["carry"]
     assert np.array_equal(np.concatenate(parts), whole["wall_ms"])
     assert np.array_equal(carry[4], whole["carry"][4])
+
+
+@pytest.mark.parametrize("scheduler", [None, "asha"])
+def test_fleet_on_the_card_equals_async_and_counts_launches(cuda_device,
+                                                           scheduler):
+    """A 2-worker process fleet on the card (spawned workers, each
+    starting CUDA and loading select_topk before it greets) makes the
+    async thread slots' study bitwise, and its receipt counts one
+    select_topk launch per epoch its workers evaluated: at 655 pages a
+    row is one tile, so every launch is the block kernel's."""
+    from repro_torch.core import ExperimentSpec, SimOptions, Study, WorkloadSpec
+    spec = ExperimentSpec(
+        engine="hemem",
+        workload=WorkloadSpec("gups", "8GiB-hot", threads=8, scale=0.02),
+        options=SimOptions(seed=3, crn=True, device="cuda"))
+    kw = dict(budget=8, seed=9, n_init=3, scheduler=scheduler)
+    base = Study(spec).tune(executor="async", slots=2, **kw)
+    r = Study(spec).tune(executor="fleet", workers=2, pool="process", **kw)
+    assert r.trials == base.trials
+    assert [(o.config, o.value) for o in r.history] == \
+        [(o.config, o.value) for o in base.history]
+    assert r.best_value == base.best_value
+    assert r.default_value == base.default_value
+    fs = r.fleet
+    assert fs["n_expired_leases"] == 0 and fs["n_worker_deaths"] == 0
+    assert fs["kernel_launches"]["select_topk"] == {
+        "block": r.epochs_evaluated, "cluster": 0}
+    if scheduler is None:
+        assert r.epochs_evaluated == base.epochs_evaluated
+    else:  # promotions re-derive their prefixes on the fleet
+        assert r.epochs_evaluated > base.epochs_evaluated

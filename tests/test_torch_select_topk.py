@@ -137,6 +137,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.tiered_params\n"
         "import repro_torch.core.tune_service, repro_torch.core.drift\n"
         "import repro_torch.core.tune_online\n"
+        "import repro_torch.core.tune_service.transport\n"
+        "import repro_torch.core.tune_service.worker\n"
+        "import repro_torch.core.tune_service.coordinator\n"
+        "import repro_torch.launch.fleet\n"
         "from repro_torch.configs import all_arch_ids, get_config\n"
         "[get_config(a) for a in all_arch_ids()]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
