@@ -101,14 +101,15 @@ counts are printed at the end).
    receipt's ``kernel_launches``) equal to the epochs evaluated and the
    coordinator's own launches the model-phase asks' ``block`` only;
    makespan, utilization and epochs evaluated beside (c)'s; (g2) at (e)'s
-   budget on 2 workers, a clean fleet, then ``FaultPlan(kill=[(2, 0)])``
-   twice: journals byte-identical, one ``worker-dead`` expiry, one
-   respawn, trials the clean fleet's; (g3) a spec minted by ``python -m
+   budget on 2 workers, ``FaultPlan(kill=[(2, 0)])`` twice: journals
+   byte-identical, one ``worker-dead`` expiry, one respawn, the study
+   bitwise (e)'s on thread slots (which the fleet equals, as (g1) shows
+   at (c)'s budget); (g3) a spec minted by ``python -m
    repro_torch.launch.fleet --init`` and 2 workers its local mode starts:
-   trials the process fleet's, the key not in the journal; then
+   the study bitwise (e)'s, the key not in the journal; then
    ``FaultPlan(truncate=[(2, 0)])`` twice on a socket fleet: journals
-   byte-identical with one ``truncated`` reject; every journal valid under
-   ``tools/journal_schema.py``;
+   byte-identical with one ``truncated`` reject, the study (e)'s; every
+   journal valid under ``tools/journal_schema.py``;
 7. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
@@ -1320,12 +1321,12 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
 
     # (e) process slots against thread slots
     t0 = time.perf_counter()
-    twins = {}
+    twins, small = {}, {}
     for pool in ("thread", "process"):
         path = TS_DIR / f"{pool}.jsonl"
         t1 = time.perf_counter()
-        gups_study("hemem", device, scale).tune(journal=str(path), pool=pool,
-                                                **TS_PROC_KW)
+        small[pool] = gups_study("hemem", device, scale).tune(
+            journal=str(path), pool=pool, **TS_PROC_KW)
         twins[pool] = (path, time.perf_counter() - t1)
     if twins["thread"][0].read_bytes() != twins["process"][0].read_bytes():
         fail("process slots: the journal differs from thread slots'")
@@ -1393,7 +1394,7 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{json.dumps(counts)}; tuning wall {wall_s:.3f} s; journal "
           f"rerun byte-identical", flush=True)
     print(f"tune service (f) seconds {out['f_s']:.3f}", flush=True)
-    return out, res
+    return out, res, small["thread"]
 
 
 # ---------------------------------------------------------------------------
@@ -1411,6 +1412,15 @@ def fleet_receipt(res):
         "n_reissues", "n_expired_leases", "n_worker_deaths", "n_respawns",
         "n_spare_promotions", "n_duplicate_results", "n_reconnects",
         "n_rejected_frames", "degraded")}
+
+
+def same_study(res, base):
+    """``res`` made every decision ``base`` made, bitwise."""
+    return res.trials == base.trials and \
+        [(o.config, o.value) for o in res.history] == \
+        [(o.config, o.value) for o in base.history] and \
+        res.best_value == base.best_value and \
+        res.default_value == base.default_value
 
 
 def clean_fleet(res, what):
@@ -1438,9 +1448,11 @@ def fleet_twins(what, kw, plan, scale, device, **more):
     return runs, read_events(str(paths[0]))
 
 
-def phase_fleet(asha, device="cuda", scale=SCALE):
-    """(g1) (c)'s study on a clean 4-worker process fleet; (g2) kill
-    twins; (g3) a socket fleet from the launcher, and truncate twins."""
+def phase_fleet(asha, small, device="cuda", scale=SCALE):
+    """(g1) (c)'s study ``asha`` on a clean 4-worker process fleet; (g2)
+    kill twins; (g3) a socket fleet from the launcher, and truncate twins.
+    (g2) and (g3) are held to (e)'s thread-slot study ``small`` at their
+    budget, which the fleet equals bitwise as (g1) shows at (c)'s."""
     import os
     import signal
     from repro_torch.core.tune_service import FaultPlan, FleetSpec
@@ -1455,11 +1467,7 @@ def phase_fleet(asha, device="cuda", scale=SCALE):
                                                   **FLEET_KW)
     own = topk_counts()
     workers = dict(res.fleet["kernel_launches"]["select_topk"])
-    if res.trials != asha.trials or \
-            [(o.config, o.value) for o in res.history] != \
-            [(o.config, o.value) for o in asha.history] or \
-            res.best_value != asha.best_value or \
-            res.default_value != asha.default_value:
+    if not same_study(res, asha):
         fail("(g1) the fleet's study differs from (c)'s async study")
     clean_fleet(res, "(g1)")
     if workers != {"block": 0, "cluster": res.epochs_evaluated}:
@@ -1491,18 +1499,13 @@ def phase_fleet(asha, device="cuda", scale=SCALE):
           f"receipt {json.dumps(fleet_receipt(res))}", flush=True)
     print(f"fleet (g1) seconds {out['g1_s']:.3f}", flush=True)
 
-    # (g2) a clean fleet at TS_PROC_KW's budget, then kill twins
+    # (g2) kill twins at TS_PROC_KW's budget
     t0 = time.perf_counter()
-    t1 = time.perf_counter()
-    small = gups_study("hemem", device, scale).tune(**FLEET_SMALL_KW)
-    small_s = time.perf_counter() - t1
-    clean_fleet(small, "(g2) clean")
     runs, events = fleet_twins("fleet_kill", FLEET_SMALL_KW,
                                FaultPlan(kill=[(2, 0)]), scale, device)
     for r, _ in runs:
-        if r.trials != small.trials:
-            fail("(g2) the killed fleet's trials differ from the clean "
-                 "fleet's")
+        if not same_study(r, small):
+            fail("(g2) the killed fleet's study differs from (e)'s")
         rc = fleet_receipt(r)
         if rc["n_worker_deaths"] != 1 or rc["n_respawns"] != 1:
             fail(f"(g2) receipt {rc}")
@@ -1511,14 +1514,13 @@ def phase_fleet(asha, device="cuda", scale=SCALE):
     if expires != [(2, 0, "worker-dead")]:
         fail(f"(g2) expiries {expires}")
     out["g2_s"] = time.perf_counter() - t0
-    out["g2"] = {"clean_wall_s": small_s,
-                 "kill_wall_s": [w for _, w in runs],
+    out["g2"] = {"kill_wall_s": [w for _, w in runs],
                  "receipt": fleet_receipt(runs[0][0]),
                  "recover_s": runs[0][0].fleet["time_to_recover_s"]}
-    print(f"fleet (g2) budget {TS_PROC_KW['budget']} on 2 workers: clean "
-          f"{small_s:.3f} s; kill (2, 0) twins byte-identical "
-          f"({runs[0][1]:.3f} s, {runs[1][1]:.3f} s), one worker-dead "
-          f"expiry, one respawn, trials the clean fleet's; receipt "
+    print(f"fleet (g2) budget {TS_PROC_KW['budget']} on 2 workers: kill "
+          f"(2, 0) twins byte-identical ({runs[0][1]:.3f} s, "
+          f"{runs[1][1]:.3f} s), one worker-dead expiry, one respawn, "
+          f"study bitwise (e)'s thread slots'; receipt "
           f"{json.dumps(out['g2']['receipt'])}", flush=True)
     print(f"fleet (g2) seconds {out['g2_s']:.3f}", flush=True)
 
@@ -1555,9 +1557,8 @@ def phase_fleet(asha, device="cuda", scale=SCALE):
                 launched.communicate(timeout=30)
     if launched.returncode != 0 or "all 2 workers greeted" not in log:
         fail(f"launcher: exit {launched.returncode}\n{log[-2000:]}")
-    if sock.trials != small.trials:
-        fail("(g3) the socket fleet's trials differ from the process "
-             "fleet's")
+    if not same_study(sock, small):
+        fail("(g3) the socket fleet's study differs from (e)'s")
     clean_fleet(sock, "(g3)")
     if spec.auth_key.encode() in path.read_bytes():
         fail("(g3) the fleet's key is in the journal")
@@ -1570,14 +1571,14 @@ def phase_fleet(asha, device="cuda", scale=SCALE):
     if rejects != [(2, 0, "truncated")]:
         fail(f"(g3) rejects {rejects}")
     for r, _ in runs:
-        if r.trials != small.trials:
-            fail("(g3) the truncated fleet's trials differ")
+        if not same_study(r, small):
+            fail("(g3) the truncated fleet's study differs from (e)'s")
     out["g3_s"] = time.perf_counter() - t0
     out["g3"] = {"launcher_wall_s": sock_s,
                  "truncate_wall_s": [w for _, w in runs],
                  "receipt": fleet_receipt(runs[0][0])}
     print(f"fleet (g3) socket fleet of 2 launcher workers (spec from "
-          f"--init) {sock_s:.3f} s, trials the process fleet's; truncate "
+          f"--init) {sock_s:.3f} s, study bitwise (e)'s; truncate "
           f"(2, 0) twins byte-identical ({runs[0][1]:.3f} s, "
           f"{runs[1][1]:.3f} s), one reject (truncated); journals valid",
           flush=True)
@@ -3522,10 +3523,10 @@ def main() -> int:
     phase_fig2()
     phase_engine_sweep()
     stamp("Fig. 2 and the engine sweep", start)
-    tune_service, asha = phase_tune_service(bo["wall_s"])
+    tune_service, asha, small = phase_tune_service(bo["wall_s"])
     stamp("the tune service and the online tuner", start)
-    fleet = phase_fleet(asha)
-    del asha
+    fleet = phase_fleet(asha, small)
+    del asha, small
     stamp("the fleet", start)
     migrate_timing = phase_page_migrate()
     attention_timing = phase_paged_attention()

@@ -11,6 +11,9 @@ sweep.
 * ``Study(spec).tune(executor="async", slots=N, scheduler="asha",
   journal=..., resume=...)`` — the asynchronous tune service
   (:mod:`repro_torch.core.tune_service`);
+* ``Study(spec).tune(executor="fleet", workers=N, pool=...)`` — the same
+  service on a fault-tolerant fleet of worker processes
+  (:mod:`repro_torch.core.tune_service.coordinator`);
 * ``Study(spec).tune(online=True, window_epochs=W)`` — online re-tuning
   under drift (:mod:`repro_torch.core.tune_online`);
 * ``Study(spec).sweep(...)`` — multi-engine × multi-workload grids, each
@@ -18,10 +21,6 @@ sweep.
 
 Workload traces are built once per Study and workload spec and shared
 across evaluations (builds are deterministic in the spec).
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue
-item): ``tune(executor="fleet")`` and the fleet's socket pool, queue 1
-item 8c.
 """
 
 from __future__ import annotations
@@ -199,9 +198,12 @@ class Study:
         workers=N``): the same deterministic control loop, its slots N
         worker processes behind a lease-and-commit coordinator
         (:class:`~repro_torch.core.tune_service.FleetExecutor`).  Workers
-        always start by spawn, and each starts CUDA on
-        ``spec.options.device`` and loads ``select_topk`` before it
-        greets; units are leased to greeted workers only.  A worker
+        always start by spawn.  Each starts CUDA on its device and loads
+        ``select_topk`` before it greets, and units are leased to greeted
+        workers only: the workers this process spawns take
+        ``spec.options.device``, a worker of a ``fleet_spec`` its own
+        ``--device``, and a worker answers a unit for another device than
+        its own with an error result.  A worker
         heartbeats its unit every ``heartbeat_s``; a lease silent for
         ``lease_deadline`` heartbeats, a dead worker or a lost result
         expires it and the unit is re-issued (at most four attempts).

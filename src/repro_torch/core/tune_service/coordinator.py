@@ -19,7 +19,7 @@ must heartbeat it every ``heartbeat_s`` while the segment runs, and a
 lease that goes silent for ``lease_deadline`` heartbeat intervals (or
 whose worker provably died — process sentinel, socket EOF, or an idle
 heartbeat proving the result was lost in flight) **expires**.  An expired
-unit is **re-issued** to another worker, at most ``max_attempts`` times
+unit is **re-issued** to another worker, at most :data:`MAX_ATTEMPTS` times
 with a short backoff, before it is surrendered as an error result (which
 the service turns into a bounded trial ``retry``, then FAILED).
 Re-issue is safe *because* the study is deterministic: a unit is a pure
@@ -92,7 +92,11 @@ FLEET_POOLS = ("process", "socket")
 #: default lease deadline, in missed-heartbeat counts (wall-clock-free)
 DEFAULT_LEASE_DEADLINE = 30
 #: give up re-issuing a unit after this many lease attempts
-DEFAULT_MAX_ATTEMPTS = 4
+MAX_ATTEMPTS = 4
+#: back-off (seconds) per earlier re-issue before a unit's next attempt
+REISSUE_BACKOFF_S = 0.05
+#: hot-spare workers a process fleet keeps booted
+HOT_SPARES = 1
 
 
 def _result_digest(result: Dict[str, Any]) -> Optional[bytes]:
@@ -112,14 +116,14 @@ class _ProcessFleet:
     """Process-transport fleet: spawned workers on this box, queue
     messaging.
 
-    Keeps ``spares`` hot-spare workers booted but never leased: a worker
+    Keeps :data:`HOT_SPARES` workers booted but never leased: a worker
     death promotes a spare instantly instead of paying a fresh boot
     (interpreter, torch, CUDA, kernels: seconds) on the critical path —
     the replacement spare boots in the background while both promoted
     slots keep working."""
 
     def __init__(self, n: int, heartbeat_s: float, faults: FaultPlan,
-                 device: str, spares: int = 1):
+                 device: str):
         import multiprocessing as mp
         # never fork: a process that started CUDA or torch's threads
         # cannot be forked
@@ -136,7 +140,7 @@ class _ProcessFleet:
         self._next_wid = 0
         for _ in range(n):
             self._spawn()
-        for _ in range(spares):
+        for _ in range(HOT_SPARES):
             self._spares.append(self._spawn())
 
     def _spawn(self) -> int:
@@ -439,9 +443,7 @@ class FleetExecutor:
                  lease_deadline: int = DEFAULT_LEASE_DEADLINE,
                  timeout_s: Optional[float] = None,
                  faults: FaultPlan = NO_FAULTS,
-                 max_attempts: int = DEFAULT_MAX_ATTEMPTS,
                  max_respawns: Optional[int] = None,
-                 backoff_s: float = 0.05,
                  fleet_spec: Optional[FleetSpec] = None,
                  device: str = "cuda"):
         if fleet_spec is not None:
@@ -468,10 +470,8 @@ class FleetExecutor:
         self.lease_deadline = int(lease_deadline)
         self.timeout_s = timeout_s
         self.faults = faults if faults is not None else NO_FAULTS
-        self.max_attempts = int(max_attempts)
         self.max_respawns = int(max_respawns) if max_respawns is not None \
             else int(workers)
-        self.backoff_s = float(backoff_s)
         self.device = str(device)
         if pool == "process":
             self._fleet = _ProcessFleet(self.slots, self.heartbeat_s,
@@ -749,7 +749,7 @@ class FleetExecutor:
             {"event": "expire", "unit": seq, "attempt": attempt,
              "reason": reason})
         nxt = attempt + 1
-        if nxt >= self.max_attempts:
+        if nxt >= MAX_ATTEMPTS:
             self._ready[seq] = {
                 "error": f"lease expired {nxt} times (unit {seq}, last "
                          f"reason: {reason}); the fleet could not complete "
@@ -761,7 +761,7 @@ class FleetExecutor:
             {"event": "reissue", "unit": seq, "attempt": nxt})
         # the first re-issue goes out immediately (the expiry already cost
         # detection latency); repeated failures of the SAME unit back off
-        self._queue.appendleft((seq, now + self.backoff_s * (nxt - 1)))
+        self._queue.appendleft((seq, now + REISSUE_BACKOFF_S * (nxt - 1)))
 
     def _dispatch(self) -> None:
         while self._queue:

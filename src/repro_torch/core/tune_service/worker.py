@@ -60,7 +60,11 @@ the kernel load runs inside a lease (where it could go silent past
 ``lease_deadline`` and be expired on a clean run).  A worker whose
 warm-up failed still greets, and answers every unit with an error result
 naming the failure: it never evaluates on another device than the one it
-was given.  Each unit's result also carries the worker's kernel launches
+was given.  Nor does a worker evaluate a unit on another device than the
+one it warmed up: a unit whose segment payload names another device (a
+``--device cpu`` socket worker serving a study on the card, or the
+reverse) gets an error result the same way.  Each unit's result also
+carries the worker's kernel launches
 during the unit (``ops.launch_counts_by_variant()`` after, less before,
 under :data:`LAUNCHES_KEY`); the coordinator strips them before the
 service sees the result, so journals and digests stay the reference's.
@@ -126,6 +130,30 @@ def warm_up(device: str, worker_id: int) -> Optional[str]:
                 f"select_topk:\n" + "".join(traceback.format_exception(
                     type(e), e, e.__traceback__)))
     return None
+
+
+def _same_device(a: str, b: str) -> bool:
+    """``a`` and ``b`` name one device (``cuda`` is ``cuda:0`` in a
+    worker, which never selects another current device)."""
+    try:
+        da, db = torch.device(a), torch.device(b)
+    except RuntimeError:  # a name torch does not know is no device here
+        return False
+    if da.type != db.type:
+        return False
+    return da.type != "cuda" or (da.index or 0) == (db.index or 0)
+
+
+def device_error(args, device: str, worker_id: int) -> Optional[str]:
+    """The error a unit gets when its payload (a segment's mapping, its
+    first argument) names another device than ``device``, the one this
+    worker warmed up; None when it names this device or none."""
+    payload = args[0] if args and isinstance(args[0], dict) else {}
+    want = payload.get("device")
+    if want is None or _same_device(str(want), device):
+        return None
+    return (f"worker {worker_id} warmed up {device}, but its unit runs on "
+            f"{want}: start the worker with --device {want}")
 
 
 def _launch_delta(before: Dict[str, Dict[str, int]],
@@ -206,9 +234,11 @@ class _ServeState:
     """Serve-loop state that must survive a transport loss: the in-flight
     evaluation (its daemon thread keeps computing while the worker
     re-dials), the wedged flag (a fired stall fault outlives any number
-    of reconnects) and the warm-up's error, if any (:func:`warm_up`)."""
+    of reconnects), the device the worker warmed up and the warm-up's
+    error, if any (:func:`warm_up`)."""
 
-    def __init__(self, card_error: Optional[str] = None):
+    def __init__(self, device: str, card_error: Optional[str] = None):
+        self.device = device
         self.card_error = card_error
         self.current: Optional[_Running] = None
         self.wedged = False  # a fired stall fault: alive, forever silent
@@ -222,8 +252,7 @@ def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
            send: Callable[[Dict[str, Any]], None],
            worker_id: int, heartbeat_s: float, faults: FaultPlan,
            parent_alive: Callable[[], bool],
-           state: Optional[_ServeState] = None,
-           hello: bool = True) -> str:
+           state: _ServeState, hello: bool = True) -> str:
     """The worker loop shared by every transport.
 
     Idle: block on the transport (new units wake it immediately) and send
@@ -240,8 +269,6 @@ def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
     broke -- the socket path re-dials with the same ``state``).  The
     socket closures may also raise :class:`TransportLost` out of this
     loop; ``state`` keeps that safe."""
-    if state is None:
-        state = _ServeState()
     if hello:
         send({"type": "hello", "worker": worker_id})
     if state.pending is not None:
@@ -281,7 +308,9 @@ def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
                           "result": {"error": "worker busy (protocol "
                                               "violation)", "slot_s": 0.0}})
                     continue
-                state.current = _Running(msg, faults, state.card_error)
+                state.current = _Running(
+                    msg, faults, state.card_error or device_error(
+                        msg["args"], state.device, worker_id))
                 continue
         now = time.monotonic()
         if state.current is None:
@@ -340,7 +369,7 @@ def process_main(worker_id: int, inbox, outbox, heartbeat_s: float,
                  faults: FaultPlan, device: str) -> None:
     """Entry point for coordinator-spawned process workers: warm up the
     card (:func:`warm_up`), then greet and serve."""
-    state = _ServeState(warm_up(device, worker_id))
+    state = _ServeState(device, warm_up(device, worker_id))
     import multiprocessing as mp
     parent = mp.parent_process()
 
@@ -410,7 +439,7 @@ def socket_main(addr, worker_id: int,
         key = bytes.fromhex(hexkey)
     if not net_delay_s:
         net_delay_s = float(os.environ.get(NET_DELAY_ENV, "0") or 0)
-    state = _ServeState(warm_up(device, worker_id))
+    state = _ServeState(device, warm_up(device, worker_id))
     # frame faults fire once per (unit, attempt) per worker process --
     # a re-issued attempt has fresh coordinates, so it runs clean
     fired: set = set()

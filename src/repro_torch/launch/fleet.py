@@ -45,7 +45,9 @@ A spec with no hosts describes a fleet the coordinator spawns itself
 (``FleetSpec.generate()`` in code); the launcher refuses it, since its
 workers would take the same ids as the coordinator's.  Each worker starts
 CUDA on ``--device`` (default ``cuda``) and loads the ``select_topk``
-kernels before it greets; ``--device cpu`` runs the plain versions.  The
+kernels before it greets; ``--device cpu`` runs the plain versions.  It
+must be the study's ``SimOptions.device``: a worker answers a unit for
+another device with an error result.  The
 spec file holds the fleet's shared secret: keep it out of version control
 and world-readable paths.
 """

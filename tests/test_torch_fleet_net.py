@@ -126,7 +126,7 @@ def test_fleet_hang_unwedged_by_timeout(baseline, tmp_path):
 
 def test_fleet_surrenders_after_max_attempts(tmp_path):
     # unit 2 loses its result on every attempt: the lease expires
-    # max_attempts (4) times, the unit is surrendered, and with retries=0
+    # MAX_ATTEMPTS (4) times, the unit is surrendered, and with retries=0
     # the trial fails -- the study finishes, never wedges
     plan = FaultPlan(drop=[(2, 0), (2, 1), (2, 2), (2, 3)])
     j = tmp_path / "surrender.jsonl"

@@ -10,7 +10,8 @@ cases; the shape and the checks of ``tests/test_torch_fleet.py``).
   fleet's (``backend="numpy"``, as its own tests run it);
 * the workers' kernel launches are summed into the receipt and stripped
   from the results; a worker that cannot start its device fails its
-  units (no fallback to the CPU);
+  units (no fallback to the CPU), and so does a worker given units for
+  another device than the one it warmed up;
 * ``python -m repro_torch.launch.fleet``: ``--init`` writes a 0600 spec,
   ``--print`` prints keyless per-host commands, and local mode brings up
   workers that greet a coordinator bound to the spec, the key never on
@@ -38,7 +39,8 @@ from repro_torch.core.tune_service import (FaultPlan,  # noqa: E402
                                            FleetExecutor, FleetSpec,
                                            read_events, tear_journal)
 from repro_torch.core.tune_service.worker import (KEY_ENV,  # noqa: E402
-                                                  LAUNCHES_KEY, warm_up)
+                                                  LAUNCHES_KEY,
+                                                  device_error, warm_up)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import select_topk as sk  # noqa: E402
 from repro_torch.launch import fleet as launcher  # noqa: E402
@@ -216,6 +218,53 @@ def test_worker_without_its_device_fails_its_units():
         ex.close()
     assert warm_up("cpu", 0) is None
     assert "no kernel for device meta" in warm_up("meta", 4)
+
+
+def on_device(payload):
+    """A segment-shaped unit: its payload names the device it runs on."""
+    return {"value": 1.0}
+
+
+def test_socket_worker_refuses_units_for_another_device():
+    """A ``--device cpu`` CLI worker of a fleet spec serves a study on
+    ``cuda:99``: it warmed up the CPU, so it answers that study's units
+    with an error result and runs only units for its own device."""
+    fleet_spec = FleetSpec.generate(workers=1, hosts=("127.0.0.1",),
+                                    heartbeat_s=0.05, lease_deadline=40)
+    ex = FleetExecutor(workers=1, pool="socket", fleet_spec=fleet_spec,
+                       device="cuda:99")
+    host, port = ex._fleet.address
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.core.tune_service.worker",
+         "--connect", f"{host}:{port}", "--id", "0", "--device", "cpu",
+         "--heartbeat", "0.05", "--max-redials", "2"],
+        env=dict(os.environ,
+                 PYTHONPATH=os.pathsep.join((str(SRC), str(ROOT / "tests"))),
+                 **{KEY_ENV: fleet_spec.auth_key}),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        ex.submit(on_device, {"device": "cuda:99"})
+        ex.submit(on_device, {"device": "cpu"})
+        (_, wrong), (_, right) = ex.pop_next(), ex.pop_next()
+        assert "warmed up cpu, but its unit runs on cuda:99" in \
+            wrong["error"] and "value" not in wrong
+        assert right["value"] == 1.0
+        assert not ex.stats()["degraded"]
+    finally:
+        ex.close()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    # the reverse, and the names of one device
+    assert "warmed up cuda, but" in device_error(({"device": "cpu"},),
+                                                 "cuda", 1)
+    assert device_error(({"device": "cuda"},), "cuda:0", 1) is None
+    assert device_error(({"value": 1},), "cpu", 1) is None
+    assert device_error((), "cpu", 1) is None
+    assert "runs on nowhere" in device_error(({"device": "nowhere"},),
+                                             "cpu", 1)
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,21 @@ def test_unsupported_archs_raise_not_implemented(arch):
         T.params_from_jax({}, cfg, device="cpu")
 
 
+def test_check_supported_refuses_every_full_cross_attention_config():
+    """Every encoder-decoder and vision arch of the registry, at its full
+    config, is refused by name and ROADMAP item; every ``lm`` arch passes."""
+    cfgs = [get_config(a) for a in all_arch_ids()]
+    refused = [c for c in cfgs if c.family in ("encdec", "vlm")]
+    assert {c.family for c in refused} == {"encdec", "vlm"}
+    for cfg in refused:
+        with pytest.raises(NotImplementedError,
+                           match=f"{cfg.arch}: .*queue 1 item 6"):
+            T.check_supported(cfg)
+    for cfg in cfgs:
+        if cfg.family == "lm":
+            T.check_supported(cfg)
+
+
 def test_init_builds_the_weights_on_the_device_from_a_seed():
     cfg = get_config("gemma2-9b", smoke=True)
     a, b = T.init(0, cfg, device="cpu"), T.init(0, cfg, device="cpu")

@@ -82,18 +82,6 @@ def test_spec_round_trip_and_defaults():
         SimOptions(sampler="nope")
 
 
-def test_unported_surface_raises_not_implemented():
-    # the Study surface is ported whole, the fleet included; what is left,
-    # the encoder-decoder and vision families, names its ROADMAP item
-    from repro_torch.configs import all_arch_ids, get_config
-    from repro_torch.models.transformer import check_supported
-    families = {get_config(a).family: a for a in all_arch_ids()}
-    assert {"encdec", "vlm"} <= set(families)
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(get_config(families[fam]))
-
-
 def test_workload_scale_past_the_paper_deployment():
     """The port's spec takes scale > 1 (the reference's stops at 1): gapbs-bc
     on kron at 1.7 is 68,004 pages, past the old 65,535-page ceiling."""
