@@ -14,9 +14,10 @@ median of 30; the wrapper's host work counts), and device time
 device time of the kernel's own launches per call (the median recorded
 launch; ``device_mean_ms`` the mean), with the host's microseconds per
 call over the same window beside it.  Each window opens with 2,048 tiny
-filler kernels, which take the records the profiler loses at the head
-of some windows; a window that lost all of them is taken again (the
-counts are printed at the end).
+filler kernels and closes with 256, which take the records the profiler
+loses at the head or the tail of some windows; a window whose first or last
+record is not a filler, or that kept fewer timed launches than calls,
+is taken again (the counts are printed at the end).
 
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
@@ -81,13 +82,14 @@ counts are printed at the end).
    slots=4, scheduler="asha")`` on thread slots with a journal: cluster
    launches equal to the epochs evaluated, no failed trial; makespan,
    slot utilization, ASHA's saved share and the incumbent beside the sync
-   budget-100 wall of (b) above; (d) (c)'s study in a child process,
-   SIGKILLed once its journal holds three quarters of (c)'s lines (at
-   least 20; deadline 600 s), resumed here, while another child reruns
-   (c): both journals byte-identical to (c)'s, all three valid under
+   budget-100 wall of (b) above, its journal valid under
    ``tools/journal_schema.py`` (run as a subprocess);
    (e) 2 process slots (spawned, each starting CUDA and loading the
    kernels) against 2 thread slots, budget 12: journals byte-identical;
+   (d), after (e), (e)'s study in a child process, SIGKILLed once its
+   journal holds three quarters of (e)'s lines (deadline 300 s), resumed
+   here: journal byte-identical to (e)'s thread slots', trials equal,
+   valid;
    (f) ``Study.tune(online=True, window_epochs=10, batch_size=4)`` on
    drift-hotspot at scale 1.0 (switches at 20 and 40): zero thrash, each
    switch detected in the first window past it, 10 cluster launches a
@@ -171,8 +173,9 @@ counts are printed at the end).
     prompt against prefill's last-position logits on the same prompt
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
 16. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
-    recurrentgemma-2b and xlstm-1.3b smoke configs at S = 512 on the card
-    against the port's CPU path; the
+    recurrentgemma-2b, xlstm-1.3b, whisper-base and llama-3.2-vision-11b
+    smoke configs at S = 512 on the card against the port's CPU path (the
+    cross gates at 0.5, a stub input at scale 1); the
     MoE configs' card runs routed as the CPU routed (``Routing``), each
     router's own choice equal to the CPU's but at near ties;
 17. ``select_topk`` past the old 65,535-page ceiling: both kernels
@@ -264,7 +267,27 @@ counts are printed at the end).
     2,560, mLSTM and sLSTM at 2,048; B = 1, S = 512) on the card against
     the port's CPU path: output and state within 1e-4 (float32) and 3e-2
     (bf16) of the largest CPU value, card ms per call;
-29. one JSON line per the kernel table, the card line again, and as the
+29. cross-attention serving: ``flash_attention`` at llama-3.2-vision-11b's
+    decoder prefill (q (4, 2048, 32, 128), k/v (4, 2048, 8, 128), causal;
+    ``wgmma`` at D = 128, group size 4) and whisper-base's (q (4, 512, 8,
+    64), k/v (4, 512, 8, 64); D = 64, group size 1), each as phase 21;
+    then llama-3.2-vision-11b at full width and depth (40 layers, 8 cross
+    layers over 1,601 patches; random weights from a seed, every cross
+    gate set to 0.5 after ``init``, whose 0 would make the cross path add
+    nothing): the launch counters set to 0 just before and read just
+    after a prefill of 4 x 2,048 tokens with a stub patch input (flash
+    exactly 40 times, all ``wgmma``), logits against ``FORCE="plain"``
+    within ``LM_LOGIT_TOL`` and bitwise on a rerun, the logits moved by
+    another draw of the stub input, a profiled prefill with the cross
+    path's shares (K/V projections, the cross sub-layer, the inline
+    ``_sdpa``); its launcher (``--batch 4 --prompt-len 256 --new-tokens
+    32``, the cross K/V primed from the launcher's stub input) on the same
+    weights, prompt logits against prefill's; then whisper-base at full
+    width and depth (6 encoder and 6 decoder layers, 1,500 frames) the
+    same way, a prefill of 4 x 512 decoder tokens (flash exactly 6 times,
+    all ``wgmma``; the encoder's share reported), its launcher 4 x 512 +
+    32;
+30. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -329,15 +352,43 @@ def kernel_launch_us(prof, names=None):
 
 
 #: tiny kernels (``torch.cuda._sleep(1)``, ATen's ``spin_kernel``)
-#: launched at the head of every ``device_ms`` window.  The profiler loses
-#: the first records of some windows, more late in a long process (idle
-#: time before the first launch does not help, nor does a warmup cycle;
-#: the last records are kept); the filler takes that loss instead of the
-#: timed launches, and a window that lost all of it is taken again
-FILLER, FILLER_NAME = 2048, "spin"
+#: launched at the head (:data:`FILLER`) and at the tail
+#: (:data:`TAIL_FILLER`, as many as the timed launches of most windows)
+#: of every ``device_ms`` window.
+#: The profiler loses the first records of some windows, more late in a
+#: long process (idle time before the first launch does not help, nor
+#: does a warmup cycle), and once lost every timed launch of a window
+#: while keeping its head; the fillers take such losses instead of the
+#: timed launches, and a window whose loss reached them is taken again
+FILLER, TAIL_FILLER, FILLER_NAME = 2048, 256, "spin"
 #: filler records lost per ``device_ms`` window, in order, windows taken
 #: again included (printed at the end)
-HEAD_LOSS = []
+FILLER_LOSS = []
+#: ``device_ms`` windows taken again, with the reason (printed at the end)
+RETAKEN = []
+#: seconds spent in ``device_ms`` calls, warmup included (printed at the
+#: end)
+PROFILED_S = [0.0]
+
+
+def _window_loss(prof, names, n):
+    """Why a ``device_ms`` window cannot be used, or None: its first or
+    last CUDA record is not a filler (the profiler's loss may have reached
+    the timed launches), or it kept fewer launches of ``names`` than the
+    ``n`` calls it timed."""
+    import torch
+    recs = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not recs or FILLER_NAME not in recs[0].name:
+        return "lost its head filler"
+    if FILLER_NAME not in recs[-1].name:
+        return "lost its tail filler"
+    kept = sum(1 for e in recs if FILLER_NAME not in e.name and (
+        names is None or any(m in e.name for m in names)))
+    if kept < n:
+        return f"kept {kept} timed launches of {n} calls"
+    return None
 
 
 def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
@@ -347,16 +398,16 @@ def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
     recorded launches times the launches a call makes, summed
     (``device_ms``), and the same with the mean of its recorded launches
     (``device_mean_ms``), so a slow tail shows as the gap between the two.
-    The window opens with :data:`FILLER` filler kernels (not counted); one
-    in which the profiler lost all of them, so that its loss may reach the
-    timed launches, is taken again, up to four times.  ``between()``, if
-    given, runs before each call and is not counted unless its kernels
-    match ``names``.  Also
+    The window opens with :data:`FILLER` filler kernels and closes with
+    :data:`TAIL_FILLER` (not counted); one that :func:`_window_loss` refuses is taken again, up to
+    four times.  ``between()``, if given, runs before each call and is not
+    counted unless its kernels match ``names``.  Also
     the host's microseconds per call over the same window (the loop's
     clock, so the wrapper's checks, allocations and launch, and
     ``between``), and the matched launches recorded per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    start = time.perf_counter()
     for _ in range(warmup):
         if between is not None:
             between()
@@ -373,25 +424,29 @@ def device_ms(fn, names, n: int = 100, warmup: int = 5, between=None):
                     between()
                 fn()
             host_s = time.perf_counter() - t0
+            for _ in range(TAIL_FILLER):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
         filler = kernel_launch_us(prof, (FILLER_NAME,))
-        kept = sum(len(t) for t in filler.values())
-        HEAD_LOSS.append(FILLER - kept)
-        if kept:
+        FILLER_LOSS.append(FILLER + TAIL_FILLER
+                           - sum(len(t) for t in filler.values()))
+        why = _window_loss(prof, names, n)
+        if why is None:
             break
-        print(f"device_ms: the profiler lost all {FILLER} filler launches "
-              f"of a window timing {names}; taking it again", flush=True)
+        RETAKEN.append(why)
+        print(f"device_ms: a window timing {names} {why}; taking it again",
+              flush=True)
     else:
-        fail(f"the profiler lost the head of five windows timing {names}")
+        fail(f"the profiler lost records of five windows timing {names} "
+             f"(the last {why})")
     launches = {k: t for k, t in kernel_launch_us(prof, names).items()
                 if k not in filler}
-    if not launches:
-        fail(f"the profiler saw no launch of {names}")
     per_call = [max(1, round(len(t) / n)) for t in launches.values()]
     us = sum(statistics.median(t) * c
              for t, c in zip(launches.values(), per_call))
     mean_us = sum(statistics.mean(t) * c
                   for t, c in zip(launches.values(), per_call))
+    PROFILED_S[0] += time.perf_counter() - start
     return {"device_ms": us / 1e3, "device_mean_ms": mean_us / 1e3,
             "host_us": host_s * 1e6 / n,
             "kernels_per_call": sum(len(t) for t in launches.values()) / n,
@@ -1118,8 +1173,8 @@ def journal_schema_ok(*paths):
 
 def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
     """(a) segments against Study.run; (b) async at one slot against sync;
-    (c) the paper's budget on 4 thread slots with ASHA, twice; (d) a
-    SIGKILLed child resumed; (e) process slots against thread slots;
+    (c) the paper's budget on 4 thread slots with ASHA; (e) process slots
+    against thread slots; (d) (e)'s study in a SIGKILLed child, resumed;
     (f) online re-tuning on drift-hotspot."""
     import os
     import shutil
@@ -1219,9 +1274,8 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{w_async:.3f} s", flush=True)
     print(f"tune service (b) seconds {out['b_s']:.3f}", flush=True)
 
-    # (c) the paper's budget on 4 thread slots with ASHA; its rerun runs
-    # in a child process beside (d)'s (three studies back to back would
-    # take the phase past four minutes: thread slots share one GIL)
+    # (c) the paper's budget on 4 thread slots with ASHA ((g1) reruns it
+    # on the fleet)
     t0 = time.perf_counter()
     first = TS_DIR / "asha0.jsonl"
     ops.reset_launch_counts()
@@ -1234,63 +1288,10 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
     rungs = sorted({t["epochs_run"] for t in res.trials})
     if not set(rungs) <= {15, 30, 60} or res.n_stopped_early == 0:
         fail(f"ASHA study: rungs {rungs}, {res.n_stopped_early} stopped")
-    out["c_s"] = time.perf_counter() - t0
-
-    # (d) (c)'s study in a child process, SIGKILLed, resumed here
-    t0 = time.perf_counter()
-    rerun, killed = TS_DIR / "asha1.jsonl", TS_DIR / "killed.jsonl"
-    # killed three quarters in, so the resume here re-evaluates a quarter
-    kill_at = max(20, 3 * len(first.read_bytes().splitlines()) // 4)
-    children = {}
-    try:
-        for name, path in (("rerun", rerun), ("killed", killed)):
-            children[name] = subprocess.Popen(
-                [sys.executable, "-c", TS_CHILD.format(
-                    src=str(ROOT / "src"), scale=scale, device=device,
-                    journal=str(path), kw=TS_KW)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-        proc = children["killed"]
-        deadline = time.monotonic() + 600
-        while time.monotonic() < deadline and proc.poll() is None:
-            if killed.exists() and \
-                    len(killed.read_bytes().splitlines()) >= kill_at:
-                break
-            time.sleep(0.01)
-        else:
-            fail(f"the child study never reached {kill_at} journal "
-                 f"lines: " + proc.stderr.read().decode()[-2000:])
-        os.kill(proc.pid, signal.SIGKILL)
-        proc.wait(timeout=60)
-        n_killed = len(read_events(str(killed)))
-        if not 0 < n_killed < len(read_events(str(first))):
-            fail(f"the killed journal holds {n_killed} events")
-        resumed = gups_study("hemem", device, scale).tune(
-            journal=str(killed), resume=True, **TS_KW)
-        out["d_s"] = time.perf_counter() - t0
-        proc = children["rerun"]
-        try:
-            proc.wait(timeout=600)
-        except subprocess.TimeoutExpired:
-            fail("the rerun of (c) in a child process did not finish in "
-                 "600 s")
-        if proc.returncode != 0:
-            fail("the rerun of (c) failed: "
-                 + proc.stderr.read().decode()[-2000:])
-        rerun_s = time.perf_counter() - t0
-    finally:
-        for proc in children.values():
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait(timeout=60)
-            proc.stderr.close()
-    for path in (rerun, killed):
-        if path.read_bytes() != first.read_bytes():
-            fail(f"{path.name}: the journal differs from (c)'s")
-    if resumed.trials != res.trials:
-        fail("the resumed study's trials differ from (c)'s")
     if any(e["event"] == "fail" for e in read_events(str(first))):
         fail("ASHA study: a trial failed")
-    journal_schema_ok(first, rerun, killed)
+    journal_schema_ok(first)
+    out["c_s"] = time.perf_counter() - t0
     out["c"] = {
         "makespan_s": res.makespan_s, "utilization": res.utilization,
         "asha_epochs_saved_frac": res.asha_epochs_saved_frac,
@@ -1298,8 +1299,7 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
         "epochs_committed": res.epochs_committed,
         "stopped_early": res.n_stopped_early, "launches": c_counts,
         "best_s": res.best_value, "default_s": res.default_value,
-        "sync_q4_wall_s": bo_wall_s, "resume_makespan_s": resumed.makespan_s,
-        "rerun_child_s": rerun_s, "killed_after_events": n_killed}
+        "sync_q4_wall_s": bo_wall_s}
     print(f"tune service (c) ASHA budget 100, 4 thread slots: makespan "
           f"{res.makespan_s:.3f} s, slot utilization "
           f"{res.utilization:.4f}, asha_epochs_saved_frac "
@@ -1310,14 +1310,8 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{res.default_value:.4f} s "
           f"({res.default_value / res.best_value:.4f}x); the sync "
           f"Study.tune(budget=100, batch_size=4) of phase 6 (b) took "
-          f"{bo_wall_s:.3f} s; its rerun in a child process (beside (d), "
-          f"{rerun_s:.3f} s) journaled the same bytes; no failed trial, "
-          f"journals valid", flush=True)
+          f"{bo_wall_s:.3f} s; no failed trial, journal valid", flush=True)
     print(f"tune service (c) seconds {out['c_s']:.3f}", flush=True)
-    print(f"tune service (d) child SIGKILLed after {n_killed} events, "
-          f"resumed here (makespan {resumed.makespan_s:.3f} s): journal "
-          f"byte-identical to (c)'s", flush=True)
-    print(f"tune service (d) seconds {out['d_s']:.3f}", flush=True)
 
     # (e) process slots against thread slots
     t0 = time.perf_counter()
@@ -1338,6 +1332,56 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{TS_PROC_KW['budget']}): wall thread {twins['thread'][1]:.3f} "
           f"s, process {twins['process'][1]:.3f} s", flush=True)
     print(f"tune service (e) seconds {out['e_s']:.3f}", flush=True)
+
+    # (d) (e)'s thread-slot study in a child process, SIGKILLed, resumed
+    # here
+    t0 = time.perf_counter()
+    small_journal = twins["thread"][0]
+    killed = TS_DIR / "killed.jsonl"
+    # killed three quarters in, so the resume here re-evaluates a quarter
+    kill_at = max(4, 3 * len(small_journal.read_bytes().splitlines()) // 4)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TS_CHILD.format(
+            src=str(ROOT / "src"), scale=scale, device=device,
+            journal=str(killed), kw=TS_PROC_KW)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            if killed.exists() and \
+                    len(killed.read_bytes().splitlines()) >= kill_at:
+                break
+            time.sleep(0.01)
+        else:
+            fail(f"the child study never reached {kill_at} journal "
+                 f"lines: " + proc.stderr.read().decode()[-2000:])
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stderr.close()
+    n_killed = len(read_events(str(killed)))
+    if not 0 < n_killed < len(read_events(str(small_journal))):
+        fail(f"the killed journal holds {n_killed} events")
+    resumed = gups_study("hemem", device, scale).tune(
+        journal=str(killed), resume=True, **TS_PROC_KW)
+    if killed.read_bytes() != small_journal.read_bytes():
+        fail("killed.jsonl: the resumed journal differs from (e)'s thread "
+             "slots'")
+    if resumed.trials != small["thread"].trials:
+        fail("the resumed study's trials differ from (e)'s thread slots'")
+    journal_schema_ok(killed)
+    out["d_s"] = time.perf_counter() - t0
+    out["d"] = {"resume_makespan_s": resumed.makespan_s,
+                "killed_after_events": n_killed}
+    print(f"tune service (d) (e)'s thread-slot study (budget "
+          f"{TS_PROC_KW['budget']}) in a child process SIGKILLed after "
+          f"{n_killed} events, resumed here (makespan "
+          f"{resumed.makespan_s:.3f} s): journal byte-identical to (e)'s, "
+          f"trials equal, journal valid", flush=True)
+    print(f"tune service (d) seconds {out['d_s']:.3f}", flush=True)
 
     # (f) online re-tuning on drift-hotspot
     t0 = time.perf_counter()
@@ -2209,8 +2253,9 @@ LM_LOGIT_TOL = 3e-2
 
 #: the CPU test file's cases, then gemma2-9b's head shape (window 4,096
 #: bites at 4,608; the wgmma kernel at D = 256), h2o-danube-3-4b's (the mma
-#: kernel at D = 120), chatglm3-6b's prefill, and the edges of the wgmma
-#: kernel at D = 64, 128 and 256
+#: kernel at D = 120), chatglm3-6b's prefill, the edges of the wgmma
+#: kernel at D = 64, 128 and 256, the cross-attention models' decoder
+#: prefills and recurrentgemma-2b's
 FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 128, 128, 4, 4, 64, True, 0, 0.0),
     (2, 256, 256, 8, 2, 64, True, 0, 0.0),
@@ -2239,6 +2284,10 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 2, 256, True, 0, 50.0),
     (1, 640, 640, 10, 1, 256, False, 256, 0.0),
     (1, 192, 64, 4, 2, 256, False, 8, 0.0),
+    # llama-3.2-vision-11b's decoder prefill (D = 128, group size 4) and
+    # whisper-base's (D = 64, group size 1)
+    (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),
+    (4, 512, 512, 8, 8, 64, True, 0, 0.0),
     # recurrentgemma-2b's local attention (the wgmma kernel at D = 256,
     # group size 10, the 2,048-token window biting at S = 4,096)
     (2, 4096, 4096, 10, 1, 256, True, 2048, 0.0),
@@ -2484,23 +2533,39 @@ def attn_layers(cfg) -> int:
     return sum(kind.startswith("attn") for kind in cfg.pattern)
 
 
+def set_gates(model, value: float) -> None:
+    """Every cross layer's ``gate_x`` to ``value``.  ``init`` leaves them
+    at 0, as the reference does, and a zero gate makes the cross path and
+    the encoder add exactly nothing to the logits."""
+    for blk in model.blocks:
+        if blk.gate_x is not None:
+            blk.gate_x.fill_(value)
+
+
 def phase_lm_prefill(spec=None):
     """chatglm3-6b (or ``spec``'s arch) at full width: build_prefill_step
     on ``spec``'s (batch, seq), flash_attention once per attention layer
     on ``spec``'s variant (``wgmma`` unless it names one).  Logits against
     ``FORCE="plain"``; where no layer attends (no kernel on the path),
     bitwise against a rerun instead.  ``spec["ranges"]`` names functions
-    whose share of the profiled prefill is reported."""
+    whose share of the profiled prefill is reported.  A cross-attention
+    family's cross gates are set to ``CROSS_GATE`` after ``init`` and its
+    batch carries the launcher's stub input (``make_extra``, seed 1); its
+    logits are also held bitwise to a rerun and must move when the
+    stub input is another draw (seed 2)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_extra
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
     spec = spec or LM
     cfg = lm_cfg(spec)
     t0 = time.perf_counter()
     model = T.init(0, cfg, device="cuda")
+    if cfg.family != "lm":
+        set_gates(model, CROSS_GATE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -2510,6 +2575,9 @@ def phase_lm_prefill(spec=None):
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, (B, S))).cuda()}
+    extra = make_extra(cfg, B, seed=1)
+    if extra is not None:
+        batch["extra"] = extra
     prefill = build_prefill_step(cfg)
     prefill(model, batch)                      # warm-up (cuBLAS handles)
     torch.cuda.synchronize()
@@ -2548,9 +2616,19 @@ def phase_lm_prefill(spec=None):
         check = {"plain_prefill_ms": plain_prefill_ms,
                  "last_logits_rel_err_vs_plain": err}
     else:
+        check = {}
+    if not n_flash or extra is not None:
         if not torch.equal(prefill(model, batch), logits):
             fail(f"{cfg.arch} prefill logits are not bitwise on a rerun")
-        check = {"last_logits_bitwise_on_rerun": True}
+        check["last_logits_bitwise_on_rerun"] = True
+    if extra is not None:
+        other = dict(batch, extra=make_extra(cfg, B, seed=2))
+        moved = rel_err(prefill(model, other), logits)
+        if not moved > 0:
+            fail(f"{cfg.arch} prefill logits do not move when the stub input "
+                 f"is another draw: the cross path adds nothing")
+        check["last_logits_rel_change_other_stub_input"] = moved
+        del other
     # ``profile_seq`` profiles a prefill of the first tokens only, against
     # its own unprofiled time: xlstm's per-position sLSTM loop launches
     # ~140 kernels a token, which the profiler post-processes slowly
@@ -2583,7 +2661,10 @@ def phase_lm_prefill(spec=None):
 
 def phase_lm_decode(model, spec=None):
     """The port's launcher at full width, then prefill's last logits on
-    the launcher's prompt against the logits after teacher-forcing it."""
+    the launcher's prompt (and stub input, where the family has one)
+    against the logits after teacher-forcing it.  For a cross-attention
+    family the launcher serves ``model`` (the prefill phase's weights, its
+    gates set): ``T.init`` hands it over while ``main`` runs."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
@@ -2595,7 +2676,21 @@ def phase_lm_decode(model, spec=None):
             "--prompt-len", str(spec["prompt_len"]), "--new-tokens",
             str(spec["new_tokens"])]
     ops.reset_launch_counts()
-    res = launcher.main(argv)
+    if cfg.family == "lm":
+        res = launcher.main(argv)
+    else:
+        from repro_torch.models import transformer as T
+        init = T.init
+
+        def same_model(key, c, device="cuda"):
+            if key != 0 or c != cfg:
+                fail(f"the launcher built another model: {key}, {c.arch}")
+            return model
+        T.init = same_model
+        try:
+            res = launcher.main(argv)
+        finally:
+            T.init = init
     decode_launches = ops.launch_counts()
     if any(decode_launches.values()):
         fail(f"the launcher's decode loop launched kernels: {decode_launches}")
@@ -2609,8 +2704,10 @@ def phase_lm_decode(model, spec=None):
     elif "mlstm" in cfg.pattern:
         want, moe = mlstm_prompt_check(model, cfg, res)
     else:
-        want = build_prefill_step(cfg)(model,
-                                       {"tokens": res["prompt"]})[:, -1]
+        batch = {"tokens": res["prompt"]}
+        if res["extra"] is not None:
+            batch["extra"] = res["extra"]
+        want = build_prefill_step(cfg)(model, batch)[:, -1]
         moe = {}
     prefill_launches = ops.launch_counts()["flash_attention"]
     got = res["prompt_logits"]
@@ -2769,29 +2866,40 @@ def dropped_share(routes, cfg) -> float:
 
 def phase_lm_card_vs_cpu():
     """chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
-    recurrentgemma-2b and xlstm-1.3b smoke configs at S = 512: the card's
-    forward and prefill against the port's CPU path on the same weights.  The MoE configs' card runs are
-    routed as the CPU routed; each router's own choice must equal the
+    recurrentgemma-2b, xlstm-1.3b, whisper-base and llama-3.2-vision-11b
+    smoke configs at S = 512: the card's forward and prefill against the
+    port's CPU path on the same weights (the cross gates at
+    ``CROSS_GATE``, a stub input at scale 1).  The MoE configs' card runs
+    are routed as the CPU routed; each router's own choice must equal the
     CPU's but at near ties (bf16 activations differ by ulps between the
     two)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_extra
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
     flips = {}
-    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS + RNN_ARCHS:
+    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS + RNN_ARCHS \
+            + CROSS_ARCHS:
         cfg = get_config(arch, smoke=True)
         cpu_model = T.init(0, cfg, device="cpu")
-        card_model = T.init(0, cfg, device="cpu").to("cuda")
+        set_gates(cpu_model, CROSS_GATE)
+        card_model = T.init(0, cfg, device="cpu")
+        set_gates(card_model, CROSS_GATE)
+        card_model = card_model.to("cuda")
         tokens = torch.from_numpy(
             np.random.default_rng(1).integers(0, cfg.vocab, (2, 512)))
+        extra = make_extra(cfg, 2, seed=1, scale=1.0)
 
         def run(model, device):
-            return (T.forward(model, cfg, tokens.to(device))[0],
-                    build_prefill_step(cfg)(model,
-                                            {"tokens": tokens.to(device)}))
+            batch = {"tokens": tokens.to(device)}
+            if extra is not None:
+                batch["extra"] = extra.to(device)
+            return (T.forward(model, cfg, batch["tokens"],
+                              batch.get("extra"))[0],
+                    build_prefill_step(cfg)(model, batch))
         with Routing() as cpu_routes:
             cpu, cpu_last = run(cpu_model, "cpu")
         ops.reset_launch_counts()
@@ -2810,8 +2918,9 @@ def phase_lm_card_vs_cpu():
             if err > LM_LOGIT_TOL:
                 fail(f"{arch} smoke {name}: card and CPU differ by {err}")
     print(f"LM smoke configs (chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, "
-          f"kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b) at S = 512: card "
-          f"agrees with the CPU path; MoE "
+          f"kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b, whisper-base, "
+          f"llama-3.2-vision-11b) at S = 512: card agrees with the CPU path; "
+          f"MoE "
           f"tokens routed apart at near ties (of 4,096 routings each): "
           f"{json.dumps(flips)}", flush=True)
 
@@ -3207,6 +3316,40 @@ XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=256,
           new_tokens=32, reps=2, profile_seq=512,
           ranges={"slstm": ("repro_torch.models.layers", "slstm_apply"),
                   "mlstm": ("repro_torch.models.layers", "mlstm_apply")})
+#: the cross-attention archs, whose smoke configs phase 16 takes
+CROSS_ARCHS = ("whisper-base", "llama-3.2-vision-11b")
+#: every cross layer's gate after ``init`` (which leaves it at 0, as the
+#: reference does: the cross path would add nothing)
+CROSS_GATE = 0.5
+#: llama-3.2-vision-11b at full width and depth (40 layers, 8 of them cross
+#: layers over 1,601 patches of 1,280; 32 query heads on 8 KV heads of
+#: 128): prefill of 4 x 2,048 tokens, flash on the wgmma kernel at group
+#: size 4; the launcher teacher-forces 4 x 256 tokens (as xlstm's, within
+#: the clock), then decodes 32.  The profile reports the cross path's
+#: shares
+VLM = dict(arch="llama-3.2-vision-11b", batch=4, seq=2048, prompt_len=256,
+           new_tokens=32,
+           ranges={"cross_layer": ("repro_torch.models.transformer",
+                                   "_cross"),
+                   "cross_kv": ("repro_torch.models.transformer",
+                                "_make_cross_kv"),
+                   "sdpa": ("repro_torch.models.layers", "_sdpa")})
+#: whisper-base at full width and depth (6 encoder and 6 decoder layers,
+#: d_model 512, 8/8 heads of 64, 1,500 frames): prefill of 4 x 512 decoder
+#: tokens (512 is the flash threshold; whisper's own text context is 448,
+#: which takes the inline _sdpa), flash on the wgmma kernel at D = 64, group
+#: size 1; the launcher teacher-forces 4 x 512 tokens, then decodes 32.
+#: The profile reports the encoder's and the cross path's shares
+WHISPER = dict(arch="whisper-base", batch=4, seq=512, prompt_len=512,
+               new_tokens=32,
+               ranges={"encoder": ("repro_torch.models.transformer",
+                                   "_encode"),
+                       **VLM["ranges"]})
+#: flash_attention at the two cross models' decoder prefills: llama's q (4,
+#: 2048, 32, 128), k/v (4, 2048, 8, 128) and whisper's q (4, 512, 8, 64),
+#: k/v (4, 512, 8, 64), causal
+FLASH_VLM = FLASH_CASES[-3]
+FLASH_WHISPER = FLASH_CASES[-2]
 #: one layer of each recurrent kind at full width (RG-LRU at
 #: recurrentgemma's d_model, mLSTM and sLSTM at xlstm's), B = 1, S = 512
 #: (two mLSTM chunks): the card against the port's CPU path, relative to
@@ -3583,6 +3726,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_recurrent_layers()
     stamp("recurrent layers", start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_vlm = phase_flash_shape(VLM["arch"], FLASH_VLM, "wgmma")
+    flash_whisper = phase_flash_shape(WHISPER["arch"], FLASH_WHISPER, "wgmma")
+    vlm_model, vlm_launches, vlm_stats = phase_lm_prefill(VLM)
+    phase_lm_decode(vlm_model, VLM)
+    del vlm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    wh_model, wh_launches, wh_stats = phase_lm_prefill(WHISPER)
+    phase_lm_decode(wh_model, WHISPER)
+    del wh_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("cross-attention: llama-3.2-vision-11b and whisper-base", start)
 
     def row(name, mod, timing, by_path):
         out = {
@@ -3606,7 +3764,7 @@ def main() -> int:
 
     flash_by_variant = {
         v: sum(st["flash_launches_by_variant"][v]
-               for st in (lm_stats, moe_stats, rg_stats))
+               for st in (lm_stats, moe_stats, rg_stats, vlm_stats, wh_stats))
         for v in fak.VARIANTS}
     topk_by_variant = {v: tune_by_variant[v]
                        + serving_by_variant["select_topk"][v]
@@ -3648,19 +3806,23 @@ def main() -> int:
                  {"lm_prefill": prefill_launches["flash_attention"],
                   "lm_prefill_moe": moe_launches["flash_attention"],
                   "lm_prefill_recurrentgemma":
-                      rg_launches["flash_attention"]}),
+                      rg_launches["flash_attention"],
+                  "lm_prefill_vlm": vlm_launches["flash_attention"],
+                  "lm_prefill_whisper": wh_launches["flash_attention"]}),
              launches_by_variant=flash_by_variant,
              mma_ms=flash_timing["mma_ms"],
              achieved_tflops=flash_timing["achieved_tflops"],
              moe_shape=flash_moe, recurrentgemma_shape=flash_rg,
              recurrentgemma_device_ms=flash_rg["device_ms"],
              recurrentgemma_old_variant=flash_rg["old_variant"],
-             recurrentgemma_old_device_ms=flash_rg["old_device_ms"]),
+             recurrentgemma_old_device_ms=flash_rg["old_device_ms"],
+             vlm_shape=flash_vlm, whisper_shape=flash_whisper),
     ]
-    lossy = [x for x in HEAD_LOSS if x]
-    print(f"profiler windows: {len(HEAD_LOSS)}, {len(lossy)} lost filler "
-          f"records at their head, {HEAD_LOSS.count(FILLER)} all {FILLER} "
-          f"(taken again); losses in order {json.dumps(lossy)}", flush=True)
+    lossy = [x for x in FILLER_LOSS if x]
+    print(f"profiler windows: {len(FILLER_LOSS)} in {PROFILED_S[0]:.1f} s, "
+          f"{len(lossy)} lost filler records, {len(RETAKEN)} taken again "
+          f"({json.dumps(RETAKEN)}); "
+          f"filler losses in order {json.dumps(lossy)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

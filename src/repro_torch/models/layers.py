@@ -17,9 +17,10 @@ through :func:`repro_torch.kernels.ops.flash_attention` under the
 reference's threshold (``S >= 512`` and ``S * B <= 2**22``), and the inline
 ``_sdpa`` below it.  The flash kernel has no gradient on the card: training
 passes ``use_flash=False`` and takes ``_sdpa``, as the reference's trainer
-does.
-
-Not ported yet (ROADMAP queue 1 item 6): cross-attention.
+does.  Cross-attention (``attn_apply(cross_kv=...)``: the whisper decoder's
+and llama-3.2-vision's image layers) attends without a mask over K/V
+precomputed from the encoder or the projected patches, through ``_sdpa``,
+as the reference computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ def apply_rope(x, positions, theta: float = 10000.0,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; causal / sliding-window)
+# Attention (GQA; causal / sliding-window / cross)
 # ---------------------------------------------------------------------------
 
 
@@ -163,17 +164,29 @@ def _sdpa(q, k, v, *, causal, window, cap, q_pos, k_pos, dtype):
 
 
 def attn_apply(params: Params, cfg: AttnCfg, x, positions,
-               kv_cache: Optional[KVCache] = None, use_flash: bool = True):
+               kv_cache: Optional[KVCache] = None,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               use_flash: bool = True):
     """Returns (out, new_kv_cache).
 
     * prefill: ``kv_cache=None`` -> full self-attention over x, through the
       flash kernel for ``S >= 512`` and ``S * B <= 2**22``.
     * decode: ``kv_cache=(k_buf, v_buf, length)`` -> append, attend.  The
       buffers are written in place (the reference returns updated copies).
+    * cross-attention: ``cross_kv=(k, v)``, each (B, T, KV, D), precomputed
+      from the encoder: q without RoPE, every key attended; no cache.
     """
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, D)
+    if cross_kv is not None:
+        k, v = cross_kv
+        T = k.shape[1]
+        out = _sdpa(q, k, v, causal=False, window=0, cap=cfg.logit_softcap,
+                    q_pos=torch.arange(S, device=x.device),
+                    k_pos=torch.arange(T, device=x.device), dtype=x.dtype)
+        return out.reshape(B, S, H * D) @ params["wo"], None
+
     k = (x @ params["wk"]).reshape(B, S, KV, D)
     v = (x @ params["wv"]).reshape(B, S, KV, D)
     if cfg.use_rope:

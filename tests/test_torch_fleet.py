@@ -25,6 +25,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_fleet_common import bounded_test  # noqa: E402,F401
 from _torch_fleet_common import (ASHA_KW, FLEET_KW, KW,  # noqa: E402
                                  same_study, schema_ok, spec)
 from repro_torch.core import Study  # noqa: E402

@@ -20,6 +20,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_fleet_common import bounded_test  # noqa: E402,F401
 from _torch_fleet_common import (FLEET_KW, KW, same_study,  # noqa: E402
                                  schema_ok, spec)
 from repro_torch.core import Study  # noqa: E402

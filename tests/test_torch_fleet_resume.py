@@ -31,8 +31,9 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_fleet_common import bounded_test  # noqa: E402,F401
 from _torch_fleet_common import (ASHA_KW, FLEET_KW, KW, ROOT,  # noqa: E402
-                                 SCALE, lease_history, same_study,
+                                 SCALE, WAIT_S, lease_history, same_study,
                                  schema_ok, spec)
 from repro_torch.core import Study  # noqa: E402
 from repro_torch.core.tune_service import (FaultPlan,  # noqa: E402
@@ -98,7 +99,7 @@ def test_fleet_coordinator_sigkill_resume_is_byte_identical(tmp_path):
         # SIGKILL once a re-issue is journaled (a lease history is
         # journaled at its unit's commit), so the resume replays one and
         # continues into live ones
-        deadline = time.time() + 120
+        deadline = time.time() + 50
         while time.time() < deadline and proc.poll() is None:
             if j_kill.exists():
                 raw = j_kill.read_bytes()
@@ -113,7 +114,7 @@ def test_fleet_coordinator_sigkill_resume_is_byte_identical(tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
-        proc.wait(timeout=30)
+        proc.wait(timeout=WAIT_S)
         proc.stderr.close()
     assert 0 < len(read_events(str(j_kill))) < len(read_events(str(j_twin)))
     r_res = Study(spec()).tune(journal=str(j_kill), resume=True,
@@ -253,10 +254,10 @@ def test_socket_worker_refuses_units_for_another_device():
     finally:
         ex.close()
         try:
-            proc.wait(timeout=30)
+            proc.wait(timeout=WAIT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
-            proc.wait(timeout=30)
+            proc.wait(timeout=WAIT_S)
     # the reverse, and the names of one device
     assert "warmed up cuda, but" in device_error(({"device": "cpu"},),
                                                  "cuda", 1)
@@ -318,15 +319,15 @@ def test_fleet_launcher_round_trip(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(SRC))
     subprocess.run([sys.executable, "-m", "repro_torch.launch.fleet", path,
                     "--init", "--workers", "2"], env=env, check=True,
-                   timeout=60, capture_output=True)
+                   timeout=WAIT_S, capture_output=True)
     fleet_spec = FleetSpec.load(path)
     assert fleet_spec.external and os.environ.get(KEY_ENV) is None
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.fleet", path,
-         "--device", "cpu", "--greet-timeout", "60"],
+         "--device", "cpu", "--greet-timeout", "40"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        deadline = time.time() + 60
+        deadline = time.time() + 40
         argv = []
         while time.time() < deadline and len(argv) < 2:
             argv = _argv_of_workers()
@@ -337,15 +338,15 @@ def test_fleet_launcher_round_trip(tmp_path):
         # the workers re-dial with backoff until the coordinator binds
         r = Study(spec()).tune(executor="fleet", fleet_spec=fleet_spec,
                                journal=str(j), **KW)
-        out, _ = proc.communicate(timeout=60)  # shutdown ends the fleet
+        out, _ = proc.communicate(timeout=WAIT_S)  # shutdown ends the fleet
     finally:
         if proc.poll() is None:  # SIGTERM: the launcher stops its workers
             proc.terminate()
             try:
-                proc.communicate(timeout=30)
+                proc.communicate(timeout=WAIT_S)
             except subprocess.TimeoutExpired:
                 proc.kill()
-                proc.communicate(timeout=30)
+                proc.communicate(timeout=WAIT_S)
     assert proc.returncode == 0, out
     assert "all 2 workers greeted" in out and "fleet stopped" in out
     same_study(r, base)

@@ -413,6 +413,10 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 2, 256, True, 0, 50.0),
     (1, 640, 640, 10, 1, 256, False, 256, 0.0),
     (1, 192, 64, 4, 2, 256, False, 8, 0.0),
+    # the cross-attention models' decoder prefills: llama-3.2-vision-11b's
+    # (D = 128, group size 4) and whisper-base's (D = 64, group size 1)
+    (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),
+    (4, 512, 512, 8, 8, 64, True, 0, 0.0),
 ]
 
 
@@ -542,6 +546,50 @@ def test_recurrent_layer_on_the_card_matches_the_cpu_path(cuda_device, kind,
         assert g.device.type == "cuda" and g.dtype == w.dtype
         err = (g.cpu().float() - w.float()).abs().max() / w.float().abs().max()
         assert float(err) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cross_layer_on_the_card_matches_the_cpu_path(cuda_device, dtype,
+                                                      tol):
+    """One full cross layer of llama-3.2-vision-11b at full width (self-
+    attention, the cross sub-layer over 1,601 projected patches with its
+    gate at 0.5, the MLP; B = 1, S = 128) on the card against the port's
+    CPU path on the same weights and input, relative to the largest CPU
+    value.  In float32 the gate set to 0 gives the output without the
+    cross path, which must differ by more than 10 x the tolerance (about
+    2e-3 of the largest value with unit-scale patches)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"),
+                              dtype="float32" if dtype == torch.float32
+                              else "bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    blk = T.init_layer(gen, cfg, "attn", "cpu", cross=True)
+    blk.gate_x.fill_(0.5)
+    proj = L.dense_init(gen, cfg.vision_dim, cfg.d_model, dtype, "cpu")
+    x = torch.randn((1, 128, cfg.d_model), generator=gen).to(dtype)
+    patches = torch.randn((1, cfg.n_patches, cfg.vision_dim), generator=gen)
+    pos = torch.arange(128)[None]
+
+    def run(b, device):
+        memory = patches.to(device).to(dtype) @ proj.to(device)
+        out, _, _ = T._layer(b, cfg, x.to(device), pos.to(device),
+                             memory=memory)
+        return out
+    want = run(blk, "cpu")
+    card = blk.to(cuda_device)
+    got = run(card, cuda_device)
+    err = (got.cpu().float() - want.float()).abs().max() \
+        / want.float().abs().max()
+    assert got.dtype == dtype and float(err) <= tol
+    if dtype == torch.float32:
+        card.gate_x.fill_(0.0)
+        off = run(card, cuda_device)
+        moved = (off.cpu() - want).abs().max() / want.abs().max()
+        assert float(moved) > 10 * tol
 
 
 @pytest.mark.parametrize("engine", ["hemem", "hmsdk", "memtis", "oracle"])

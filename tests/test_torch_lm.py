@@ -44,8 +44,8 @@ from repro_torch.models.config import SHAPES  # noqa: E402
 from repro_torch.serve.step import build_prefill_step  # noqa: E402
 
 DENSE = ["chatglm3-6b", "gemma2-9b", "h2o-danube-3-4b", "command-r-plus-104b"]
-#: the cross-attention families, not ported yet (ROADMAP queue 1 item 6)
-OTHERS = ["whisper-base", "llama-3.2-vision-11b"]
+#: the cross-attention families (``tests/test_torch_cross.py``)
+CROSS = ["whisper-base", "llama-3.2-vision-11b"]
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
@@ -121,39 +121,20 @@ def test_make_batch_from_numpy_and_torch_generators():
         == registry.extra_shape(vlm, 2)
 
 
-@pytest.mark.parametrize("arch", OTHERS + ["extra"])
-def test_unsupported_archs_raise_not_implemented(arch):
-    """The cross-attention archs raise at every entry point, naming their
-    ROADMAP item; ``extra``: a modality frontend input to an ``lm`` arch
-    raises too."""
-    if arch == "extra":
-        model = T.init(0, get_config("chatglm3-6b", smoke=True), device="cpu")
-        tokens = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            T.forward(model, model.cfg, tokens, extra=torch.zeros(1, 4, 64))
-        return
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        T.init(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        T.decode_init(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        T.params_from_jax({}, cfg, device="cpu")
-
-
-def test_check_supported_refuses_every_full_cross_attention_config():
-    """Every encoder-decoder and vision arch of the registry, at its full
-    config, is refused by name and ROADMAP item; every ``lm`` arch passes."""
-    cfgs = [get_config(a) for a in all_arch_ids()]
-    refused = [c for c in cfgs if c.family in ("encdec", "vlm")]
-    assert {c.family for c in refused} == {"encdec", "vlm"}
-    for cfg in refused:
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.arch}: .*queue 1 item 6"):
-            T.check_supported(cfg)
-    for cfg in cfgs:
-        if cfg.family == "lm":
-            T.check_supported(cfg)
+def test_check_supported_accepts_every_registry_config():
+    """Every arch of the registry, full and smoke, the cross-attention
+    families included (``tests/test_torch_cross.py``), is accepted; an
+    unknown block kind or family is still refused."""
+    for arch in all_arch_ids():
+        for smoke in (False, True):
+            T.check_supported(get_config(arch, smoke=smoke))
+    assert {get_config(a).family for a in CROSS} == {"encdec", "vlm"}
+    cfg = get_config("chatglm3-6b", smoke=True)
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        T.check_supported(dataclasses.replace(
+            cfg, layer_pattern=("attn", "conv")))
+    with pytest.raises(ValueError, match="unknown family"):
+        T.check_supported(dataclasses.replace(cfg, family="speech"))
 
 
 def test_init_builds_the_weights_on_the_device_from_a_seed():
