@@ -85,7 +85,8 @@ is taken again (the counts are printed at the end).
    budget-100 wall of (b) above, its journal valid under
    ``tools/journal_schema.py`` (run as a subprocess);
    (e) 2 process slots (spawned, each starting CUDA and loading the
-   kernels) against 2 thread slots, budget 12: journals byte-identical;
+   kernels) against 2 thread slots, budget 8 (12 until it was cut for
+   the clock): journals byte-identical;
    (d), after (e), (e)'s study in a child process, SIGKILLed once its
    journal holds three quarters of (e)'s lines (deadline 300 s), resumed
    here: journal byte-identical to (e)'s thread slots', trials equal,
@@ -151,12 +152,13 @@ is taken again (the counts are printed at the end).
     file's cases, gemma2-9b's head shape (D 256, softcap 50, window
     4,096 at S = 4,608), h2o-danube-3-4b's (D 120), chatglm3-6b's
     prefill (q (4, 2048, 32, 128), k/v (4, 2048, 2, 128)), the wgmma
-    kernel's edges at D = 64, 128 and 256 (ragged S and T, S != T with a
-    softcap, a window without causality, rows that see no key, 10 query
-    heads on one KV head) and recurrentgemma-2b's prefill (q (2, 4096,
-    10, 256), k/v (2, 4096, 1, 256), window 2,048); every bf16 case the
-    rule sends to the wgmma kernel (D 64, 128 and 256) also runs the old
-    mma kernel.  Times at
+    kernel's edges at D = 64, 128, 256 and 120 (ragged S and T, S != T
+    with a softcap, a window without causality, rows that see no key, 10
+    query heads on one KV head, group size 4 at D = 120) and
+    recurrentgemma-2b's prefill (q (2, 4096, 10, 256), k/v (2, 4096, 1,
+    256), window 2,048); every bf16 case the rule sends to the wgmma
+    kernel (D 64, 120, 128 and 256) also runs the old mma kernel; every
+    run bitwise on a rerun.  Times at
     chatglm3-6b's prefill: the wgmma and the mma kernel in turns (new,
     old, old, new), with achieved TFLOP/s and the share of the bound,
     beside ``scaled_dot_product_attention`` (causal, GQA), and the device
@@ -172,9 +174,9 @@ is taken again (the counts are printed at the end).
     kernel launched by decode, and its logits after teacher-forcing the
     prompt against prefill's last-position logits on the same prompt
     (within ``LM_LOGIT_TOL``, relative to the largest logit);
-16. the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
-    recurrentgemma-2b, xlstm-1.3b, whisper-base and llama-3.2-vision-11b
-    smoke configs at S = 512 on the card against the port's CPU path (the
+16. the chatglm3-6b, gemma2-9b, h2o-danube-3-4b, granite-moe-1b-a400m,
+    kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b, whisper-base and
+    llama-3.2-vision-11b smoke configs at S = 512 on the card against the port's CPU path (the
     cross gates at 0.5, a stub input at scale 1); the
     MoE configs' card runs routed as the CPU routed (``Routing``), each
     router's own choice equal to the CPU's but at near ties;
@@ -257,7 +259,7 @@ is taken again (the counts are printed at the end).
     profiled prefill of its first 512 tokens (the sLSTM loop's ~140
     kernels a token make the profiler's post-processing the phase's
     longest step at 2,048) with the sLSTM loop's and the mLSTM chunks'
-    device and host ms; then its launcher (a prompt of 256 tokens), as
+    device and host ms; then its launcher (a prompt of 128 tokens), as
     above, its prompt logits against a prefill whose mLSTM layers run at
     chunk 1 (what decode computes; the reference's mLSTM clamps within a
     chunk only) within
@@ -287,7 +289,25 @@ is taken again (the counts are printed at the end).
     same way, a prefill of 4 x 512 decoder tokens (flash exactly 6 times,
     all ``wgmma``; the encoder's share reported), its launcher 4 x 512 +
     32;
-30. one JSON line per the kernel table, the card line again, and as the
+30. the sliding-window dense families past their window: ``flash_attention``
+    at gemma2-9b's prefill (q (2, 8192, 16, 256), k/v (2, 8192, 8, 256),
+    causal, window 4,096, softcap 50) and h2o-danube-3-4b's (q (2, 8192,
+    32, 120), k/v (2, 8192, 8, 120), causal, window 4,096; ``wgmma`` at
+    D = 120 on D = 128's plan), each as phase 25 (the old ``mma`` kernel
+    beside; SDPA at gemma2's shape without the softcap, recorded as not
+    the same function); then gemma2-9b at full width and depth (42
+    layers, 9.24 B parameters, every layer windowed as the reference
+    does) and h2o-danube-3-4b (24 layers, 3.84 B): the launch counters set
+    to 0 just before and read just after a prefill of 2 x 8,192 tokens
+    (flash exactly 42 and 24 times, all ``wgmma``), logits against
+    ``FORCE="plain"`` within ``LM_LOGIT_TOL`` and bitwise on a rerun, a
+    profiled prefill with flash's and the matrix products' shares and the
+    idle share; their launchers (``--full --batch 4 --prompt-len 256
+    --new-tokens 32``) on the same weights, no kernel in decode, prompt
+    logits against prefill's; then both smoke configs (window 32) through
+    64 teacher-forced decode steps, twice around their rings, card against
+    the CPU path within ``LM_LOGIT_TOL`` at every step;
+31. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1134,7 +1154,7 @@ TS_KW = dict(budget=100, seed=0, executor="async", slots=4,
              scheduler="asha")
 #: the twin study of thread against process slots (its budget and (b)'s
 #: are the ones lowered when the phase runs long)
-TS_PROC_KW = dict(budget=12, seed=0, executor="async", slots=2,
+TS_PROC_KW = dict(budget=8, seed=0, executor="async", slots=2,
                   scheduler="asha")
 #: async at one slot against sync: with optimizer seed 0 the asks past
 #: n_init = 20 are random interleaves (probability 0.2 each) up to the
@@ -2252,9 +2272,9 @@ LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=512,
 LM_LOGIT_TOL = 3e-2
 
 #: the CPU test file's cases, then gemma2-9b's head shape (window 4,096
-#: bites at 4,608; the wgmma kernel at D = 256), h2o-danube-3-4b's (the mma
-#: kernel at D = 120), chatglm3-6b's prefill, the edges of the wgmma
-#: kernel at D = 64, 128 and 256, the cross-attention models' decoder
+#: bites at 4,608; the wgmma kernel at D = 256), h2o-danube-3-4b's (the
+#: wgmma kernel at D = 120), chatglm3-6b's prefill, the edges of the wgmma
+#: kernel at D = 64, 128, 256 and 120, the cross-attention models' decoder
 #: prefills and recurrentgemma-2b's
 FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (1, 128, 128, 4, 4, 64, True, 0, 0.0),
@@ -2284,6 +2304,13 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 2, 256, True, 0, 50.0),
     (1, 640, 640, 10, 1, 256, False, 256, 0.0),
     (1, 192, 64, 4, 2, 256, False, 8, 0.0),
+    # the same edges at D = 120 (D = 128's plan, the maps' last 8 columns
+    # zero-filled), and group size 4 with a window
+    (1, 1000, 1000, 8, 2, 120, True, 0, 0.0),
+    (2, 300, 517, 4, 1, 120, True, 0, 30.0),
+    (1, 640, 640, 8, 8, 120, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 120, False, 8, 0.0),
+    (2, 700, 700, 32, 8, 120, True, 256, 0.0),
     # llama-3.2-vision-11b's decoder prefill (D = 128, group size 4) and
     # whisper-base's (D = 64, group size 1)
     (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),
@@ -2343,14 +2370,18 @@ def phase_flash_attention():
             want = ref.flash_attention_plain(q, k, v, **kw)
             # the variant the rule picks (through ops), and the mma kernel
             # too where the rule picks wgmma, so both stay held to the plain
-            # version at these shapes
+            # version at these shapes; each bitwise on a rerun
             runs = [("rule", lambda: ops.flash_attention(q, k, v, **kw))]
             if fak.pick_variant(dtype, case[5]) == "wgmma":
                 runs.append(("mma", lambda: fak.flash_attention(
                     q, k, v, variant="mma", **kw)))
             for name, run in runs:
                 got = run()
+                again = run()
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"flash_attention ({name}) is not bitwise on a "
+                         f"rerun ({dtype}, case {case})")
                 err = float((got.float() - want.float()).abs().max())
                 if dtype == torch.bfloat16:
                     max_err = max(max_err, err)
@@ -2359,10 +2390,10 @@ def phase_flash_attention():
                     fail(f"flash_attention ({name}) differs from its plain "
                          f"version ({dtype}, case {case}): {err}")
                 n += 1
-            del q, k, v, want, got
+            del q, k, v, want, got, again
     print(f"flash_attention: {n} runs within tolerance of the plain "
-          f"version (f32 2e-5, bf16 2e-2; max bf16 abs err {max_err:.3g})",
-          flush=True)
+          f"version (f32 2e-5, bf16 2e-2; max bf16 abs err {max_err:.3g}), "
+          f"each bitwise on a rerun", flush=True)
     D = FLASH_MAIN[5]
     q, k, v = flash_inputs(FLASH_MAIN, torch.bfloat16, seed=99)
     variant = fak.pick_variant(q.dtype, D)
@@ -2547,8 +2578,9 @@ def phase_lm_prefill(spec=None):
     on ``spec``'s (batch, seq), flash_attention once per attention layer
     on ``spec``'s variant (``wgmma`` unless it names one).  Logits against
     ``FORCE="plain"``; where no layer attends (no kernel on the path),
-    bitwise against a rerun instead.  ``spec["ranges"]`` names functions
-    whose share of the profiled prefill is reported.  A cross-attention
+    bitwise against a rerun instead (with ``spec["rerun"]``, as well).
+    ``spec["ranges"]`` names functions whose share of the profiled
+    prefill is reported.  A cross-attention
     family's cross gates are set to ``CROSS_GATE`` after ``init`` and its
     batch carries the launcher's stub input (``make_extra``, seed 1); its
     logits are also held bitwise to a rerun and must move when the
@@ -2601,13 +2633,18 @@ def phase_lm_prefill(spec=None):
     reps = spec.get("reps", 5)
     prefill_ms = cuda_ms(lambda: prefill(model, batch), reps=reps, warmup=1)
     if n_flash:
+        # one plain prefill, timed between CUDA events: the comparison
+        # needs no more (gemma2-9b's takes 5.4 s)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ops.FORCE = "plain"
         try:
+            ev[0].record()
             plain_logits = prefill(model, batch)
-            plain_prefill_ms = cuda_ms(lambda: prefill(model, batch),
-                                       reps=3, warmup=0)
+            ev[1].record()
+            torch.cuda.synchronize()
         finally:
             ops.FORCE = None
+        plain_prefill_ms = ev[0].elapsed_time(ev[1])
         err = float((logits.float() - plain_logits.float()).abs().max()
                     / plain_logits.float().abs().max())
         if err > LM_LOGIT_TOL:
@@ -2617,7 +2654,7 @@ def phase_lm_prefill(spec=None):
                  "last_logits_rel_err_vs_plain": err}
     else:
         check = {}
-    if not n_flash or extra is not None:
+    if not n_flash or extra is not None or spec.get("rerun"):
         if not torch.equal(prefill(model, batch), logits):
             fail(f"{cfg.arch} prefill logits are not bitwise on a rerun")
         check["last_logits_bitwise_on_rerun"] = True
@@ -2662,12 +2699,14 @@ def phase_lm_prefill(spec=None):
 def phase_lm_decode(model, spec=None):
     """The port's launcher at full width, then prefill's last logits on
     the launcher's prompt (and stub input, where the family has one)
-    against the logits after teacher-forcing it.  For a cross-attention
-    family the launcher serves ``model`` (the prefill phase's weights, its
-    gates set): ``T.init`` hands it over while ``main`` runs."""
+    against the logits after teacher-forcing it.  The launcher serves
+    ``model`` (the prefill phase's weights, a cross family's gates set):
+    ``T.init`` hands it over while ``main`` runs, so no second copy of the
+    weights is made."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
     spec = spec or LM
     cfg = lm_cfg(spec)
@@ -2675,22 +2714,18 @@ def phase_lm_decode(model, spec=None):
     argv = ["--arch", cfg.arch, "--full", "--batch", str(B),
             "--prompt-len", str(spec["prompt_len"]), "--new-tokens",
             str(spec["new_tokens"])]
-    ops.reset_launch_counts()
-    if cfg.family == "lm":
-        res = launcher.main(argv)
-    else:
-        from repro_torch.models import transformer as T
-        init = T.init
+    init = T.init
 
-        def same_model(key, c, device="cuda"):
-            if key != 0 or c != cfg:
-                fail(f"the launcher built another model: {key}, {c.arch}")
-            return model
-        T.init = same_model
-        try:
-            res = launcher.main(argv)
-        finally:
-            T.init = init
+    def same_model(key, c, device="cuda"):
+        if key != 0 or c != cfg:
+            fail(f"the launcher built another model: {key}, {c.arch}")
+        return model
+    ops.reset_launch_counts()
+    T.init = same_model
+    try:
+        res = launcher.main(argv)
+    finally:
+        T.init = init
     decode_launches = ops.launch_counts()
     if any(decode_launches.values()):
         fail(f"the launcher's decode loop launched kernels: {decode_launches}")
@@ -2865,11 +2900,11 @@ def dropped_share(routes, cfg) -> float:
 
 
 def phase_lm_card_vs_cpu():
-    """chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, kimi-k2-1t-a32b,
-    recurrentgemma-2b, xlstm-1.3b, whisper-base and llama-3.2-vision-11b
-    smoke configs at S = 512: the card's forward and prefill against the
-    port's CPU path on the same weights (the cross gates at
-    ``CROSS_GATE``, a stub input at scale 1).  The MoE configs' card runs
+    """chatglm3-6b, gemma2-9b, h2o-danube-3-4b, granite-moe-1b-a400m,
+    kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b, whisper-base and
+    llama-3.2-vision-11b smoke configs at S = 512: the card's forward and
+    prefill against the port's CPU path on the same weights (the cross
+    gates at ``CROSS_GATE``, a stub input at scale 1).  The MoE configs' card runs
     are routed as the CPU routed; each router's own choice must equal the
     CPU's but at near ties (bf16 activations differ by ulps between the
     two)."""
@@ -2881,8 +2916,8 @@ def phase_lm_card_vs_cpu():
     from repro_torch.models import transformer as T
     from repro_torch.serve.step import build_prefill_step
     flips = {}
-    for arch in ("chatglm3-6b", "gemma2-9b") + MOE_SMOKE_ARCHS + RNN_ARCHS \
-            + CROSS_ARCHS:
+    for arch in ("chatglm3-6b",) + WINDOW_ARCHS + MOE_SMOKE_ARCHS \
+            + RNN_ARCHS + CROSS_ARCHS:
         cfg = get_config(arch, smoke=True)
         cpu_model = T.init(0, cfg, device="cpu")
         set_gates(cpu_model, CROSS_GATE)
@@ -2917,12 +2952,11 @@ def phase_lm_card_vs_cpu():
                         / b.float().abs().max())
             if err > LM_LOGIT_TOL:
                 fail(f"{arch} smoke {name}: card and CPU differ by {err}")
-    print(f"LM smoke configs (chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, "
-          f"kimi-k2-1t-a32b, recurrentgemma-2b, xlstm-1.3b, whisper-base, "
-          f"llama-3.2-vision-11b) at S = 512: card agrees with the CPU path; "
-          f"MoE "
-          f"tokens routed apart at near ties (of 4,096 routings each): "
-          f"{json.dumps(flips)}", flush=True)
+    print(f"LM smoke configs (chatglm3-6b, gemma2-9b, h2o-danube-3-4b, "
+          f"granite-moe-1b-a400m, kimi-k2-1t-a32b, recurrentgemma-2b, "
+          f"xlstm-1.3b, whisper-base, llama-3.2-vision-11b) at S = 512: "
+          f"card agrees with the CPU path; MoE tokens routed apart at near "
+          f"ties (of 4,096 routings each): {json.dumps(flips)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3307,12 +3341,13 @@ RG = dict(arch="recurrentgemma-2b", batch=2, seq=4096, launch_batch=4,
 FLASH_RG = FLASH_CASES[-1]
 #: xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM; no
 #: attention, so no kernel): prefill of 4 x 2,048 tokens, the launcher
-#: teacher-forcing 4 x 256 tokens (a decode step costs the same at any
-#: position: the state is fixed-size; 512 took 29-48 s a call), then 32;
+#: teacher-forcing 4 x 128 tokens (a decode step costs the same at any
+#: position: the state is fixed-size; 512 took 29-48 s a call, and 256 was
+#: cut to 128 for the clock), then 32;
 #: the profile reports the sLSTM loop's and the mLSTM chunks' shares.
 #: Its prefill is host-bound (2,048 sLSTM steps a layer), so it is timed
 #: over 2 calls
-XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=256,
+XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=128,
           new_tokens=32, reps=2, profile_seq=512,
           ranges={"slstm": ("repro_torch.models.layers", "slstm_apply"),
                   "mlstm": ("repro_torch.models.layers", "mlstm_apply")})
@@ -3324,8 +3359,8 @@ CROSS_GATE = 0.5
 #: llama-3.2-vision-11b at full width and depth (40 layers, 8 of them cross
 #: layers over 1,601 patches of 1,280; 32 query heads on 8 KV heads of
 #: 128): prefill of 4 x 2,048 tokens, flash on the wgmma kernel at group
-#: size 4; the launcher teacher-forces 4 x 256 tokens (as xlstm's, within
-#: the clock), then decodes 32.  The profile reports the cross path's
+#: size 4; the launcher teacher-forces 4 x 256 tokens (within the clock),
+#: then decodes 32.  The profile reports the cross path's
 #: shares
 VLM = dict(arch="llama-3.2-vision-11b", batch=4, seq=2048, prompt_len=256,
            new_tokens=32,
@@ -3350,6 +3385,26 @@ WHISPER = dict(arch="whisper-base", batch=4, seq=512, prompt_len=512,
 #: k/v (4, 512, 8, 64), causal
 FLASH_VLM = FLASH_CASES[-3]
 FLASH_WHISPER = FLASH_CASES[-2]
+#: the sliding-window dense families at full width and depth, random
+#: weights from a seed, every layer windowed at 4,096 (the reference windows
+#: gemma2's "attn" layers too): prefills of 2 x 8,192 tokens, so the window
+#: bites, flash on the wgmma kernel (D = 256 with softcap 50; D = 120 on
+#: D = 128's plan), logits bitwise on a rerun; the launchers teacher-force 4
+#: x 256 tokens, then decode 32.  gemma2-9b: 42 layers, d_model 3,584, 16 /
+#: 8 heads of 256, 9.24 B parameters; h2o-danube-3-4b: 24 layers, d_model
+#: 3,840, 32 / 8 heads of 120, 3.84 B
+GEMMA = dict(arch="gemma2-9b", batch=2, seq=8192, launch_batch=4,
+             prompt_len=256, new_tokens=32, flash_variant="wgmma",
+             rerun=True)
+DANUBE = dict(GEMMA, arch="h2o-danube-3-4b")
+#: flash_attention at their prefills: 25,167,872 attended (query, key)
+#: pairs per (batch, head), 8.25e11 and 7.73e11 flops
+FLASH_GEMMA = (2, 8192, 8192, 16, 8, 256, True, 4096, 50.0)
+FLASH_DANUBE = (2, 8192, 8192, 32, 8, 120, True, 4096, 0.0)
+#: their smoke configs (window 32): teacher-forced decode steps past the
+#: 32-slot rings, card against the CPU path
+WINDOW_ARCHS = ("gemma2-9b", "h2o-danube-3-4b")
+WINDOW_DECODE_STEPS = 64
 #: one layer of each recurrent kind at full width (RG-LRU at
 #: recurrentgemma's d_model, mLSTM and sLSTM at xlstm's), B = 1, S = 512
 #: (two mLSTM chunks): the card against the port's CPU path, relative to
@@ -3380,7 +3435,8 @@ def phase_flash_shape(arch, case, variant, old=None):
     kernel), single-call times and the bound.  With a window, SDPA takes
     the window's boolean mask and K/V repeated to the query heads (not
     timed), and the kernels it ran (the backend PyTorch picked) are
-    recorded."""
+    recorded.  No PyTorch call takes a softcap: with one, SDPA is timed
+    without it and recorded as not the same function."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fak
@@ -3428,8 +3484,10 @@ def phase_flash_shape(arch, case, variant, old=None):
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=causal,
                                                   enable_gqa=True)
-    if cap or not torch.allclose(sdpa().transpose(1, 2).float(), got.float(),
-                                 atol=2e-2, rtol=2e-2):
+    same_function = not cap
+    if same_function and not torch.allclose(
+            sdpa().transpose(1, 2).float(), got.float(), atol=2e-2,
+            rtol=2e-2):
         fail("the SDPA yardstick does not compute the kernel's function")
     del want, again
     # device times in turns (kernel, [old,] SDPA, SDPA, [old,] kernel)
@@ -3456,6 +3514,7 @@ def phase_flash_shape(arch, case, variant, old=None):
                        "causal": causal, "window": window},
              "variant": variant, "max_abs_err": err, "device_ms": device,
              "library_device_ms": library_device,
+             "library_same_function": same_function,
              "device_turns_ms": turns, "sdpa_kernels": sorted(sdpa_kernels),
              "kernel_ms": kernel_ms, "library_ms": library_ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3615,10 +3674,68 @@ def phase_recurrent_layers():
     return stats
 
 
+def phase_window_decode():
+    """gemma2-9b's and h2o-danube-3-4b's smoke configs (window 32) through
+    ``WINDOW_DECODE_STEPS`` teacher-forced ``build_serve_step`` steps, twice
+    around their 32-slot rings, on the card against the port's CPU path
+    from the same weights: every step's logits within ``LM_LOGIT_TOL`` of
+    the largest CPU logit, no kernel launched (decode attends inline)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.step import build_serve_step
+    stats = {}
+    for arch in WINDOW_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        n = WINDOW_DECODE_STEPS
+        tokens = torch.from_numpy(
+            np.random.default_rng(3).integers(0, cfg.vocab, (2, n)))
+        step = build_serve_step(cfg)
+        logits = {}
+        ops.reset_launch_counts()
+        for device in ("cpu", "cuda"):
+            model = T.init(0, cfg, device="cpu").to(device)
+            cache = T.decode_init(cfg, 2, n, device=device)
+            rings = {e["kv"][0].shape[1] for e in cache}
+            if rings != {cfg.window}:
+                fail(f"{arch} smoke: rings of {rings} slots, expected "
+                     f"{cfg.window}")
+            out = []
+            for t in range(n):
+                _, lg, cache = step(model, tokens[:, t:t + 1].to(device), t,
+                                    cache)
+                out.append(lg[:, -1].float().cpu())
+            logits[device] = torch.stack(out, 1)
+        if any(ops.launch_counts().values()):
+            fail(f"{arch} smoke decode launched kernels: "
+                 f"{ops.launch_counts()}")
+        errs = [rel_err(logits["cuda"][:, t], logits["cpu"][:, t])
+                for t in range(n)]
+        if not (bool(torch.isfinite(logits["cuda"]).all())
+                and max(errs) <= LM_LOGIT_TOL):
+            fail(f"{arch} smoke decode past its ring: card and CPU differ by "
+                 f"{max(errs)} (tolerance {LM_LOGIT_TOL})")
+        stats[arch] = {"steps": n, "ring": cfg.window,
+                       "max_rel_err": max(errs),
+                       "max_rel_err_past_ring": max(errs[cfg.window:])}
+    print("window decode (smoke configs, window 32, teacher-forced), card "
+          "against the CPU path: " + json.dumps(stats), flush=True)
+    return stats
+
+
+#: the elapsed seconds at the last ``stamp``
+STAMPED = [0.0]
+
+
 def stamp(label: str, t0: float) -> None:
-    """The script's elapsed seconds at the end of a group of phases."""
-    print(f"chip_smoke: {label} done at {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    """The script's elapsed seconds at the end of a group of phases, and
+    the group's own."""
+    now = time.perf_counter() - t0
+    print(f"chip_smoke: {label} done at {now:.1f} s ({now - STAMPED[0]:.1f} "
+          f"s)", flush=True)
+    STAMPED[0] = now
 
 
 def main() -> int:
@@ -3741,6 +3858,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     stamp("cross-attention: llama-3.2-vision-11b and whisper-base", start)
+    flash_gemma = phase_flash_shape(GEMMA["arch"], FLASH_GEMMA, "wgmma",
+                                    old="mma")
+    flash_danube = phase_flash_shape(DANUBE["arch"], FLASH_DANUBE, "wgmma",
+                                     old="mma")
+    gm_model, gm_launches, gm_stats = phase_lm_prefill(GEMMA)
+    phase_lm_decode(gm_model, GEMMA)
+    del gm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dn_model, dn_launches, dn_stats = phase_lm_prefill(DANUBE)
+    phase_lm_decode(dn_model, DANUBE)
+    del dn_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    window_decode = phase_window_decode()
+    stamp("sliding window: gemma2-9b and h2o-danube-3-4b", start)
 
     def row(name, mod, timing, by_path):
         out = {
@@ -3764,7 +3897,8 @@ def main() -> int:
 
     flash_by_variant = {
         v: sum(st["flash_launches_by_variant"][v]
-               for st in (lm_stats, moe_stats, rg_stats, vlm_stats, wh_stats))
+               for st in (lm_stats, moe_stats, rg_stats, vlm_stats, wh_stats,
+                          gm_stats, dn_stats))
         for v in fak.VARIANTS}
     topk_by_variant = {v: tune_by_variant[v]
                        + serving_by_variant["select_topk"][v]
@@ -3808,7 +3942,9 @@ def main() -> int:
                   "lm_prefill_recurrentgemma":
                       rg_launches["flash_attention"],
                   "lm_prefill_vlm": vlm_launches["flash_attention"],
-                  "lm_prefill_whisper": wh_launches["flash_attention"]}),
+                  "lm_prefill_whisper": wh_launches["flash_attention"],
+                  "lm_prefill_gemma2": gm_launches["flash_attention"],
+                  "lm_prefill_danube": dn_launches["flash_attention"]}),
              launches_by_variant=flash_by_variant,
              mma_ms=flash_timing["mma_ms"],
              achieved_tflops=flash_timing["achieved_tflops"],
@@ -3816,7 +3952,11 @@ def main() -> int:
              recurrentgemma_device_ms=flash_rg["device_ms"],
              recurrentgemma_old_variant=flash_rg["old_variant"],
              recurrentgemma_old_device_ms=flash_rg["old_device_ms"],
-             vlm_shape=flash_vlm, whisper_shape=flash_whisper),
+             vlm_shape=flash_vlm, whisper_shape=flash_whisper,
+             gemma2_shape=flash_gemma, danube_shape=flash_danube,
+             gemma2_device_ms=flash_gemma["device_ms"],
+             danube_device_ms=flash_danube["device_ms"],
+             window_decode=window_decode),
     ]
     lossy = [x for x in FILLER_LOSS if x]
     print(f"profiler windows: {len(FILLER_LOSS)} in {PROFILED_S[0]:.1f} s, "

@@ -13,10 +13,10 @@
 // gives zeros (out = acc / max(l, 1e-30)), as in the TPU kernel.
 //
 // Three kernels compute it; the wrapper's variant(dtype, D) picks one:
-//   wgmma  bfloat16 at D = 64, 128 or 256 (the LM prefill paths): a TMA
-//          ring and warp-specialised wgmma;
-//   mma    bfloat16 at any other D (16, 120): mma.sync m16n8k16, compiled
-//          for every D up to 256;
+//   wgmma  bfloat16 at D = 64, 120, 128 or 256 (the LM prefill paths): a
+//          TMA ring and warp-specialised wgmma;
+//   mma    bfloat16 at any other D (16, 112, ...): mma.sync m16n8k16,
+//          compiled for every D up to 256;
 //   fma    float32: the FMA units.
 //
 // Common design.  The TPU grid (B * KV, q blocks, kv blocks) runs its kv
@@ -38,7 +38,7 @@
 // (The mma and fma kernels put one block on each query tile; the wgmma
 // kernel walks the same tiles, in the same order, from persistent blocks.)
 //
-// wgmma (bfloat16, D = 64, 128 or 256).  The grid is persistent: one
+// wgmma (bfloat16, D = 64, 120, 128 or 256).  The grid is persistent: one
 // block an SM (its shared memory allows no more), each walking a share of
 // the work items, an item being 128 query rows of one head (heaviest
 // first, the G heads of a KV group neighbours; a block that finishes early
@@ -90,6 +90,15 @@
 // (tma_store_wait_read before the Q-empty arrival).  192 KB and the
 // barriers.  A window of 2,048 and the causal diagonal fall on the 64-key
 // tile edges; Q and every K/V tile are 4 boxes a row.
+//
+// wgmma at D = 120 (h2o-danube-3-4b's heads) runs the D = 128 plan, with
+// the tensor maps' inner dim and the output's row stride at the real 120.
+// A row is two boxes of 64 columns; TMA fills the second box's columns
+// 120..127, past the map, with zeros, and still counts the whole box
+// toward the mbarrier's transaction bytes (as it does for rows past S or
+// T), so the expected-tx counts stay the full tiles'.  Q and K then carry
+// zero columns, so S = Q K^T is exact; V's zero columns give zero output
+// columns, which the TMA store clips.  The host's scale is 1 / sqrt(120).
 //
 // mma (bfloat16, other D): 4 warps, 64 query rows a block, 16 a warp; key
 // tiles of 64.  Q, K and V tiles sit in shared memory (rows padded by 16
@@ -371,7 +380,7 @@ flash_mma_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64, 128 or 256: TMA ring, warp-specialised wgmma
+// bfloat16 at D = 64, 120, 128 or 256: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 constexpr int kWgRows = 64;                      // query rows a consumer
 constexpr int kWgConsumers = 2;                  // consumer warpgroups
@@ -967,18 +976,21 @@ bool encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The kernel's plan D serves head dims a.D <= D: the maps are a.D wide
+// (D = 128's plan takes a.D = 120; columns past a.D load as zeros).
 template <int D>
 int launch_wgmma(const Args& a, int B, int KV, int* next_item,
                  cudaStream_t stream) {
   using L = WgPlan<D>;
   CUtensorMap tq, tk, tv, to;
-  const long long o_ss = static_cast<long long>(a.H) * D;
-  if (!encode_map(&tq, a.q, D, a.H, a.S, B, a.q_sh, a.q_ss, a.q_sb, kWgBM) ||
-      !encode_map(&to, a.out, D, a.H, a.S, B, D, o_ss, o_ss * a.S, kWgRows))
+  const int hd = a.D;
+  const long long o_ss = static_cast<long long>(a.H) * hd;
+  if (!encode_map(&tq, a.q, hd, a.H, a.S, B, a.q_sh, a.q_ss, a.q_sb, kWgBM) ||
+      !encode_map(&to, a.out, hd, a.H, a.S, B, hd, o_ss, o_ss * a.S, kWgRows))
     return -1;
   if (a.T > 0) {
-    if (!encode_map(&tk, a.k, D, KV, a.T, B, a.k_sh, a.k_st, a.k_sb, L::kBN) ||
-        !encode_map(&tv, a.v, D, KV, a.T, B, a.v_sh, a.v_st, a.v_sb, L::kBN))
+    if (!encode_map(&tk, a.k, hd, KV, a.T, B, a.k_sh, a.k_st, a.k_sb, L::kBN) ||
+        !encode_map(&tv, a.v, hd, KV, a.T, B, a.v_sh, a.v_st, a.v_sb, L::kBN))
       return -1;
   } else {
     tk = tv = tq;  // no key tile is loaded
@@ -1006,7 +1018,7 @@ int launch_wgmma(const Args& a, int B, int KV, int* next_item,
 }  // namespace
 
 // variant: 0 = fma (float32), 1 = mma (bfloat16), 2 = wgmma (bfloat16, D 64,
-// 128 or 256: 1 block an SM, 197,720 B of shared memory at D = 256).
+// 120, 128 or 256: 1 block an SM, 197,720 B of shared memory at D = 256).
 // Strides in elements: (batch, position, head) of q (B, S, H, D) and k/v
 // (B, T, KV, D); the last dim is contiguous, and every stride and
 // base is 16-byte aligned.  out is a contiguous (B, S, H, D).  D is a
@@ -1026,7 +1038,7 @@ extern "C" int flash_attention_launch(
   if (variant == 2) {
     int* counter = static_cast<int*>(next_item);
     if (D == 64) return launch_wgmma<64>(a, B, KV, counter, st);
-    if (D == 128) return launch_wgmma<128>(a, B, KV, counter, st);
+    if (D == 120 || D == 128) return launch_wgmma<128>(a, B, KV, counter, st);
     if (D == 256) return launch_wgmma<256>(a, B, KV, counter, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,20 +11,22 @@ device.
 Three kernels compute the same function, and :func:`pick_variant` picks one
 from the dtype and head dim:
 
-* ``"wgmma"``: bfloat16 at D = 64, 128 or 256, the LM prefill paths
-  (chatglm3-6b at 128, granite-moe at 64, recurrentgemma-2b's local
-  attention and gemma2-9b at 256).  Persistent blocks; in each, a TMA ring
-  of K/V tiles filled by a producer warp and two consumer warpgroups of 64
-  query rows running ``wgmma`` with the online softmax in registers,
-  overlapped with the previous tile's P V.  The tile plan depends on D: at
-  64 and 128, key tiles of 128 and two Q buffers; at 256, key tiles of 64
+* ``"wgmma"``: bfloat16 at D = 64, 120, 128 or 256, the LM prefill paths
+  (chatglm3-6b at 128, granite-moe at 64, h2o-danube-3-4b at 120,
+  recurrentgemma-2b's local attention and gemma2-9b at 256).  Persistent
+  blocks; in each, a TMA ring of K/V tiles filled by a producer warp and
+  two consumer warpgroups of 64 query rows running ``wgmma`` with the
+  online softmax in registers, overlapped with the previous tile's P V.
+  The tile plan depends on D: at 64 and 128, key tiles of 128 and two Q
+  buffers (D = 120 runs D = 128's plan, its tensor maps 120 columns wide,
+  TMA filling the rest with zeros); at 256, key tiles of 64
   (S in 32 float registers a thread, O in 128), one 64 KB Q buffer through
   which each consumer also stages its output, and a 2-stage ring of 32 KB
   K and V tiles, 197,720 bytes of shared memory in all.  Bound by
   operations (4 * D flops per attended (query, key) pair, on the tensor
   cores at 989 TFLOP/s bf16 on an H100 SXM); its time beside that bound is
   in PERF.md.
-* ``"mma"``: bfloat16 at any other D (16, h2o-danube-3-4b's 120),
+* ``"mma"``: bfloat16 at any other D (16, 112, ...),
   ``mma.sync`` with synchronous tile loads; compiled for every D up to 256.
 * ``"fma"``: float32 on the FMA units (tensor cores would round to TF32).
 
@@ -56,8 +58,8 @@ REPLACES = "src/repro/kernels/flash_attention.py:102"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: the kernels, by the code the C launcher takes
 VARIANTS = {"fma": 0, "mma": 1, "wgmma": 2}
-#: head dims the wgmma kernel is compiled for
-WGMMA_D = (64, 128, 256)
+#: head dims the wgmma kernel takes (120 on the plan of 128)
+WGMMA_D = (64, 120, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 256
 #: grid dims y (batch) and z (query tiles) are at most 65,535
@@ -91,7 +93,7 @@ def _kernel():
 def pick_variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that computes attention for ``dtype`` at head dim ``D``:
     ``fma`` for float32; for bfloat16, ``wgmma`` at D in :data:`WGMMA_D`
-    (64, 128, 256) and ``mma`` at any other D (16, 120, ...)."""
+    (64, 120, 128, 256) and ``mma`` at any other D (16, 112, ...)."""
     if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:

@@ -81,9 +81,14 @@ def softcap(x, cap: float):
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                rotary_dim: Optional[int] = None, device=None):
+    """Inverse frequencies ``1 / theta ** (2i / rd)`` in float32, equal bit
+    for bit to the reference's: torch's float32 ``pow`` is one ulp off
+    XLA's at some exponents (D = 120 and 256), which grows to 3e-3 in the
+    rotation at position 524,287, so the power is taken in float64 and
+    rounded to float32 before the float32 reciprocal."""
     rd = rotary_dim or head_dim
     exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
-    return 1.0 / (theta ** exps)  # (rd/2,)
+    return 1.0 / (theta ** exps.double()).float()  # (rd/2,)
 
 
 def apply_rope(x, positions, theta: float = 10000.0,

@@ -168,7 +168,7 @@ def test_kernel_is_built_from_its_source_and_names_the_tpu_kernel():
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "wgmma"),   # chatglm3-6b's prefill
     (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 120, "mma"),     # h2o-danube-3-4b
+    (torch.bfloat16, 120, "wgmma"),   # h2o-danube-3-4b
     (torch.bfloat16, 16, "mma"),      # the smoke configs
     (torch.bfloat16, 256, "wgmma"),   # gemma2-9b, recurrentgemma-2b
     (torch.float32, 128, "fma"),
@@ -202,7 +202,7 @@ def test_launches_by_variant_reset_with_the_other_counters():
     (torch.bfloat16, 128, "fma", "does not take"),
     (torch.float32, 128, "wgmma", "does not take"),
     (torch.float32, 64, "mma", "does not take"),
-    (torch.bfloat16, 120, "wgmma", "head dims"),
+    (torch.bfloat16, 112, "wgmma", "head dims"),
     (torch.bfloat16, 192, "wgmma", "head dims"),
 ])
 def test_kernel_wrapper_refuses_a_bad_variant(dtype, D, variant, match):

@@ -413,6 +413,13 @@ FLASH_CASES = [  # B, S, T, H, KV, D, causal, window, cap
     (2, 300, 517, 4, 2, 256, True, 0, 50.0),
     (1, 640, 640, 10, 1, 256, False, 256, 0.0),
     (1, 192, 64, 4, 2, 256, False, 8, 0.0),
+    # the same edges at D = 120 (h2o-danube-3-4b's heads on D = 128's plan,
+    # the maps' last 8 columns zero-filled), and group size 4 with a window
+    (1, 1000, 1000, 8, 2, 120, True, 0, 0.0),
+    (2, 300, 517, 4, 1, 120, True, 0, 30.0),
+    (1, 640, 640, 8, 8, 120, False, 256, 0.0),
+    (1, 192, 64, 4, 2, 120, False, 8, 0.0),
+    (2, 700, 700, 32, 8, 120, True, 256, 0.0),
     # the cross-attention models' decoder prefills: llama-3.2-vision-11b's
     # (D = 128, group size 4) and whisper-base's (D = 64, group size 1)
     (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),
@@ -441,14 +448,16 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, tol, B, S,
     variant = fak.pick_variant(dtype, D)
     by_variant = fak.launches_by_variant[variant]
     got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fak.launches == before + 1 and got.dtype == dtype
-    assert fak.launches_by_variant[variant] == by_variant + 1
+    assert fak.launches == before + 2 and got.dtype == dtype
+    assert fak.launches_by_variant[variant] == by_variant + 2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,causal,window,cap",
-                         [c for c in FLASH_CASES if c[5] in (64, 128, 256)])
+                         [c for c in FLASH_CASES if c[5] in (64, 120, 128, 256)])
 def test_flash_attention_mma_kernel_where_the_rule_picks_wgmma(
         cuda_device, B, S, T, H, KV, D, causal, window, cap):
     """The old bf16 kernel stays right at the head dims the wgmma kernel
@@ -480,7 +489,7 @@ def test_flash_attention_kernel_reads_strided_views(cuda_device):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 120, 128, 256])
 def test_flash_attention_wgmma_kernel_reads_strided_views(cuda_device, D):
     """The wgmma kernel's tensor maps over views: q, k and v sliced out of
     one fused (B, S, H + 2 KV, D) projection, and a batch that is a
