@@ -104,15 +104,15 @@ is taken again (the counts are printed at the end).
    receipt's ``kernel_launches``) equal to the epochs evaluated and the
    coordinator's own launches the model-phase asks' ``block`` only;
    makespan, utilization and epochs evaluated beside (c)'s; (g2) at (e)'s
-   budget on 2 workers, ``FaultPlan(kill=[(2, 0)])`` twice: journals
-   byte-identical, one ``worker-dead`` expiry, one respawn, the study
-   bitwise (e)'s on thread slots (which the fleet equals, as (g1) shows
-   at (c)'s budget); (g3) a spec minted by ``python -m
-   repro_torch.launch.fleet --init`` and 2 workers its local mode starts:
-   the study bitwise (e)'s, the key not in the journal; then
-   ``FaultPlan(truncate=[(2, 0)])`` twice on a socket fleet: journals
-   byte-identical with one ``truncated`` reject, the study (e)'s; every
-   journal valid under ``tools/journal_schema.py``;
+   budget on 2 workers, ``FaultPlan(kill=[(2, 0)])``: one ``worker-dead``
+   expiry, one respawn, the study bitwise (e)'s on thread slots (which the
+   fleet equals, as (g1) shows at (c)'s budget); (g3) a spec minted by
+   ``python -m repro_torch.launch.fleet --init`` and 2 workers its local
+   mode starts: the study bitwise (e)'s, the key not in the journal; then
+   ``FaultPlan(truncate=[(2, 0)])`` on a socket fleet: one ``truncated``
+   reject, the study (e)'s; every journal valid under
+   ``tools/journal_schema.py`` (the byte-identical twins of (g2) and (g3)
+   were cut for the clock: the CPU tests hold them);
 7. ``page_migrate`` against its plain version, bitwise: bf16 and f32, -1
    lanes (the row-0 case included), duplicate destinations, no lanes, rows
    that are not a multiple of 16 bytes, and the serving shape (256 lanes of
@@ -187,23 +187,40 @@ is taken again (the counts are printed at the end).
     120 epochs), B = 8, ``crn=True``: bitwise equal to ``FORCE="plain"``,
     the cluster kernel once per epoch;
 18. LM training, card against CPU: 2 AdamW steps (``n_micro`` 1 and 2) of
-    the chatglm3-6b, gemma2-9b, granite-moe-1b-a400m, recurrentgemma-2b
-    and xlstm-1.3b smoke configs (the MoE layers' index ops, the RG-LRU
-    scan, the mLSTM chunks and the sLSTM loop under autograd) from the
-    same weights and
-    ``SyntheticLM`` batches, losses and grad norms within ``TRAIN_TOL``,
-    no kernel launched; ``flash_attention`` under autograd on the card
-    raises;
-19. LM training at chatglm3-6b's full width and depth through the
-    launcher's trainer (``--full --batch 4 --seq 512``, AdamW by its rule,
-    no checkpoint written): 6 steps with finite losses and grad norms, the
-    weights moved, no flash launch, the first loss against ``loss_fn``
-    under ``no_grad`` within 1e-3; per step loss, grad norm, ms,
-    tokens/s and peak memory; then 3 Adafactor steps after the AdamW state
-    is freed;
-20. a checkpoint restart on the card at the smoke config: 20 steps
-    straight against 10, a restart and 10, the losses after the restart
-    bitwise equal;
+    the chatglm3-6b, gemma2-9b, h2o-danube-3-4b, granite-moe-1b-a400m,
+    recurrentgemma-2b, xlstm-1.3b, whisper-base and llama-3.2-vision-11b
+    smoke configs (the MoE layers' index ops, the RG-LRU scan, the mLSTM
+    chunks, the sLSTM loop, the encoder and the cross layers under
+    autograd; the cross gates at 0.5 on both sides) from the same weights
+    and ``SyntheticLM`` batches, losses and grad norms within
+    ``TRAIN_TOL``, no kernel launched; ``flash_attention`` under autograd
+    on the card raises;
+19. checkpoint restarts on the card at the chatglm3-6b, granite-moe-1b-a400m,
+    recurrentgemma-2b, xlstm-1.3b, whisper-base and gemma2-9b smoke configs:
+    20 steps straight against 10, a restart and 10, the losses after the
+    restart bitwise equal;
+20. LM training at full width and depth through the launcher's trainer
+    (``--full --batch 4``, no checkpoint written) of chatglm3-6b,
+    granite-moe-1b-a400m, recurrentgemma-2b, whisper-base and
+    h2o-danube-3-4b (AdamW by the launcher's rule; 4 steps of 4 x 512
+    tokens), xlstm-1.3b (AdamW; 3 steps of 4 x 256, cut for the clock:
+    its sLSTM loop takes 8.3 s a step at 512) and gemma2-9b and
+    llama-3.2-vision-11b (``--optimizer adafactor``: AdamW's 12 B a
+    parameter would not fit the card; 4 steps of 4 x 512); the cross gates
+    set to 0.5 right after ``make_trainer``; the launch counters set to 0
+    just before and read just after (no kernel: flash has no gradient);
+    finite losses and grad norms, the first loss against ``loss_fn`` under
+    ``no_grad`` within 1e-3, and each family's own leaves
+    (``train_leaves``) given a nonzero gradient by the first step and
+    moved (but RG-LRU's decay path, whose gradient at the reference's init
+    is far below AdamW's eps: ``STILL_LEAVES``, reported); per step loss,
+    grad norm, ms, tokens/s and peak memory beside the card's name and
+    power limit; init seconds, ``n_micro``, granite's aux loss and
+    dropped-slot share, and a step in its parts (``train_breakdown``:
+    forward and backward, clipping and the update between CUDA events,
+    then a profiled step for device busy and the matrix products' share;
+    each arch profiled at the shape it trained, its kernels summed from
+    the profiler's raw records, ``kernel_rows``);
 21. ``flash_attention`` at granite-moe-1b-a400m's prefill shape (q (4,
     2048, 16, 64), k/v (4, 2048, 8, 64), causal; the wgmma kernel at D = 64
     with group size 2): against the plain version (bf16 2e-2) and bitwise
@@ -302,8 +319,9 @@ is taken again (the counts are printed at the end).
     (flash exactly 42 and 24 times, all ``wgmma``), logits against
     ``FORCE="plain"`` within ``LM_LOGIT_TOL`` and bitwise on a rerun, a
     profiled prefill with flash's and the matrix products' shares and the
-    idle share; their launchers (``--full --batch 4 --prompt-len 256
-    --new-tokens 32``) on the same weights, no kernel in decode, prompt
+    idle share; their launchers (``--full --batch 4 --new-tokens 32``,
+    prompts of 128 for gemma2-9b, 256 before the clock cut it, and 256
+    for h2o-danube-3-4b) on the same weights, no kernel in decode, prompt
     logits against prefill's; then both smoke configs (window 32) through
     64 teacher-forced decode steps, twice around their rings, card against
     the CPU path within ``LM_LOGIT_TOL`` at every step;
@@ -1494,27 +1512,23 @@ def clean_fleet(res, what):
         fail(f"{what}: the clean fleet's receipt {r}")
 
 
-def fleet_twins(what, kw, plan, scale, device, **more):
-    """Two journaled fleet studies under one fault plan: byte-identical
-    journals; returns both results and the first journal's events."""
+def fleet_faulted(what, kw, plan, scale, device, **more):
+    """A journaled fleet study under a fault plan: the result, its
+    seconds and its journal's events (the journal valid)."""
     from repro_torch.core.tune_service import read_events
-    runs, paths = [], []
-    for twin in range(2):
-        path = TS_DIR / f"{what}{twin}.jsonl"
-        t1 = time.perf_counter()
-        runs.append((gups_study("hemem", device, scale).tune(
-            journal=str(path), faults=plan, **kw, **more),
-            time.perf_counter() - t1))
-        paths.append(path)
-    if paths[0].read_bytes() != paths[1].read_bytes():
-        fail(f"{what}: the twin journals differ")
-    journal_schema_ok(*paths)
-    return runs, read_events(str(paths[0]))
+    path = TS_DIR / f"{what}.jsonl"
+    t1 = time.perf_counter()
+    res = gups_study("hemem", device, scale).tune(
+        journal=str(path), faults=plan, **kw, **more)
+    wall = time.perf_counter() - t1
+    journal_schema_ok(path)
+    return res, wall, read_events(str(path))
 
 
 def phase_fleet(asha, small, device="cuda", scale=SCALE):
     """(g1) (c)'s study ``asha`` on a clean 4-worker process fleet; (g2)
-    kill twins; (g3) a socket fleet from the launcher, and truncate twins.
+    a killed worker; (g3) a socket fleet from the launcher, and a truncated
+    result on a socket fleet.
     (g2) and (g3) are held to (e)'s thread-slot study ``small`` at their
     budget, which the fleet equals bitwise as (g1) shows at (c)'s."""
     import os
@@ -1563,32 +1577,29 @@ def phase_fleet(asha, small, device="cuda", scale=SCALE):
           f"receipt {json.dumps(fleet_receipt(res))}", flush=True)
     print(f"fleet (g1) seconds {out['g1_s']:.3f}", flush=True)
 
-    # (g2) kill twins at TS_PROC_KW's budget
+    # (g2) a killed worker at TS_PROC_KW's budget
     t0 = time.perf_counter()
-    runs, events = fleet_twins("fleet_kill", FLEET_SMALL_KW,
-                               FaultPlan(kill=[(2, 0)]), scale, device)
-    for r, _ in runs:
-        if not same_study(r, small):
-            fail("(g2) the killed fleet's study differs from (e)'s")
-        rc = fleet_receipt(r)
-        if rc["n_worker_deaths"] != 1 or rc["n_respawns"] != 1:
-            fail(f"(g2) receipt {rc}")
+    killed, kill_s, events = fleet_faulted(
+        "fleet_kill", FLEET_SMALL_KW, FaultPlan(kill=[(2, 0)]), scale, device)
+    if not same_study(killed, small):
+        fail("(g2) the killed fleet's study differs from (e)'s")
+    rc = fleet_receipt(killed)
+    if rc["n_worker_deaths"] != 1 or rc["n_respawns"] != 1:
+        fail(f"(g2) receipt {rc}")
     expires = [(e["unit"], e["attempt"], e["reason"]) for e in events
                if e["event"] == "expire"]
     if expires != [(2, 0, "worker-dead")]:
         fail(f"(g2) expiries {expires}")
     out["g2_s"] = time.perf_counter() - t0
-    out["g2"] = {"kill_wall_s": [w for _, w in runs],
-                 "receipt": fleet_receipt(runs[0][0]),
-                 "recover_s": runs[0][0].fleet["time_to_recover_s"]}
+    out["g2"] = {"kill_wall_s": kill_s, "receipt": rc,
+                 "recover_s": killed.fleet["time_to_recover_s"]}
     print(f"fleet (g2) budget {TS_PROC_KW['budget']} on 2 workers: kill "
-          f"(2, 0) twins byte-identical ({runs[0][1]:.3f} s, "
-          f"{runs[1][1]:.3f} s), one worker-dead expiry, one respawn, "
+          f"(2, 0) ({kill_s:.3f} s), one worker-dead expiry, one respawn, "
           f"study bitwise (e)'s thread slots'; receipt "
           f"{json.dumps(out['g2']['receipt'])}", flush=True)
     print(f"fleet (g2) seconds {out['g2_s']:.3f}", flush=True)
 
-    # (g3) a socket fleet from the launcher, then truncate twins
+    # (g3) a socket fleet from the launcher, then a truncated result
     t0 = time.perf_counter()
     spec_path = TS_DIR / "fleet_spec.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1627,25 +1638,22 @@ def phase_fleet(asha, small, device="cuda", scale=SCALE):
     if spec.auth_key.encode() in path.read_bytes():
         fail("(g3) the fleet's key is in the journal")
     journal_schema_ok(path)
-    runs, events = fleet_twins("fleet_truncate", FLEET_SMALL_KW,
-                               FaultPlan(truncate=[(2, 0)]), scale, device,
-                               pool="socket")
+    cut, cut_s, events = fleet_faulted(
+        "fleet_truncate", FLEET_SMALL_KW, FaultPlan(truncate=[(2, 0)]),
+        scale, device, pool="socket")
     rejects = [(e["unit"], e["attempt"], e["reason"]) for e in events
                if e["event"] == "reject"]
     if rejects != [(2, 0, "truncated")]:
         fail(f"(g3) rejects {rejects}")
-    for r, _ in runs:
-        if not same_study(r, small):
-            fail("(g3) the truncated fleet's study differs from (e)'s")
+    if not same_study(cut, small):
+        fail("(g3) the truncated fleet's study differs from (e)'s")
     out["g3_s"] = time.perf_counter() - t0
-    out["g3"] = {"launcher_wall_s": sock_s,
-                 "truncate_wall_s": [w for _, w in runs],
-                 "receipt": fleet_receipt(runs[0][0])}
+    out["g3"] = {"launcher_wall_s": sock_s, "truncate_wall_s": cut_s,
+                 "receipt": fleet_receipt(cut)}
     print(f"fleet (g3) socket fleet of 2 launcher workers (spec from "
-          f"--init) {sock_s:.3f} s, study bitwise (e)'s; truncate "
-          f"(2, 0) twins byte-identical ({runs[0][1]:.3f} s, "
-          f"{runs[1][1]:.3f} s), one reject (truncated); journals valid",
-          flush=True)
+          f"--init) {sock_s:.3f} s, study bitwise (e)'s; truncate (2, 0) "
+          f"({cut_s:.3f} s), one reject (truncated), study bitwise (e)'s; "
+          f"journals valid", flush=True)
     print(f"fleet (g3) seconds {out['g3_s']:.3f}", flush=True)
     return out
 
@@ -2567,10 +2575,13 @@ def attn_layers(cfg) -> int:
 def set_gates(model, value: float) -> None:
     """Every cross layer's ``gate_x`` to ``value``.  ``init`` leaves them
     at 0, as the reference does, and a zero gate makes the cross path and
-    the encoder add exactly nothing to the logits."""
-    for blk in model.blocks:
-        if blk.gate_x is not None:
-            blk.gate_x.fill_(value)
+    the encoder add exactly nothing to the logits (and gives them no
+    gradient)."""
+    import torch
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.gate_x is not None:
+                blk.gate_x.fill_(value)
 
 
 def phase_lm_prefill(spec=None):
@@ -3055,38 +3066,62 @@ def phase_select_topk_long():
 
 
 # ---------------------------------------------------------------------------
-# LM training: chatglm3-6b at full width and depth
+# LM training: the smoke configs card against CPU, restarts, and every arch
+# that one card holds at full width and depth
 # ---------------------------------------------------------------------------
-#: the training path: chatglm3-6b at full width, 4 x 512 tokens, AdamW
-TRAIN = dict(arch="chatglm3-6b", batch=4, seq=512, steps=6,
-             adafactor_steps=3)
+#: the training path at full width through the launcher's trainer, 4
+#: sequences a step
+TRAIN_BATCH = 4
+#: (arch, ``--optimizer`` (None: the launcher's rule, AdamW below 3e11
+#: parameters), steps, tokens a sequence).  gemma2-9b and
+#: llama-3.2-vision-11b take Adafactor: AdamW's bf16 weights and gradients
+#: and float32 moments, 12 B a parameter, come to 110.9 and 115.1 GB.
+#: xlstm-1.3b's sLSTM loop makes a step of 4 x 512 take 8.3 s on the host,
+#: so it trains 3 steps of 4 x 256 (cut for the clock)
+TRAIN_ARCHS = (("chatglm3-6b", None, 4, 512),
+               ("granite-moe-1b-a400m", None, 4, 512),
+               ("recurrentgemma-2b", None, 4, 512),
+               ("xlstm-1.3b", None, 3, 256), ("whisper-base", None, 4, 512),
+               ("h2o-danube-3-4b", None, 4, 512),
+               ("gemma2-9b", "adafactor", 4, 512),
+               ("llama-3.2-vision-11b", "adafactor", 4, 512))
+#: the smoke configs trained on the card against the CPU path
+TRAIN_SMOKE_ARCHS = ("chatglm3-6b", "gemma2-9b", "h2o-danube-3-4b",
+                     "granite-moe-1b-a400m", "recurrentgemma-2b",
+                     "xlstm-1.3b", "whisper-base", "llama-3.2-vision-11b")
+#: the smoke configs whose restart on the card must be bitwise
+RESTART_ARCHS = ("chatglm3-6b", "granite-moe-1b-a400m", "recurrentgemma-2b",
+                 "xlstm-1.3b", "whisper-base", "gemma2-9b")
 #: losses and grad norms of the card against the CPU path, bf16 smoke
 #: configs (``LM_LOGIT_TOL``'s bar)
 TRAIN_TOL = 3e-2
 
 
 def phase_train_card_vs_cpu():
-    """2 train steps (AdamW, n_micro 1 and 2) of the chatglm3-6b,
-    gemma2-9b, granite-moe-1b-a400m, recurrentgemma-2b and xlstm-1.3b smoke
-    configs on the card and on the CPU from the same weights and batches;
-    then flash_attention under autograd must raise."""
+    """2 train steps (AdamW, n_micro 1 and 2) of each ``TRAIN_SMOKE_ARCHS``
+    smoke config on the card and on the CPU from the same weights (the
+    cross gates at ``CROSS_GATE``) and batches; then flash_attention under
+    autograd must raise."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
+    from repro_torch.models.registry import extra_shape
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.train.step import TrainState, build_train_step, to_device
     worst = 0.0
     ops.reset_launch_counts()
-    for arch in ("chatglm3-6b", "gemma2-9b", MOE["arch"]) + RNN_ARCHS:
+    for arch in TRAIN_SMOKE_ARCHS:
         cfg = get_config(arch, smoke=True)
-        data = SyntheticLM(cfg.vocab, 128, 4, seed=0)
+        data = SyntheticLM(cfg.vocab, 128, 4, seed=0,
+                           extra_shape=extra_shape(cfg, 4))
         for n_micro in (1, 2):
             seen = {}
             for device in ("cpu", "cuda"):
-                model = T.init(0, cfg, device="cpu").to(device)
-                model.requires_grad_(True)
+                model = T.init(0, cfg, device="cpu")
+                set_gates(model, CROSS_GATE)
+                model = model.to(device).requires_grad_(True)
                 opt = AdamW(lr=cosine_schedule(1e-3, 2, 10))
                 state = TrainState(
                     model, opt.init(dict(model.named_parameters())), 0)
@@ -3118,25 +3153,104 @@ def phase_train_card_vs_cpu():
         fail("flash_attention under autograd on the card did not raise")
     if ops.launch_counts()["flash_attention"]:
         fail("flash_attention launched under autograd")
-    print(f"LM training smoke configs (chatglm3-6b, gemma2-9b, "
-          f"granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b; n_micro 1, "
-          f"2): card agrees with the CPU "
-          f"path, worst relative difference "
-          f"{worst:.3g}; flash_attention under autograd raises", flush=True)
+    print(f"LM training smoke configs ({', '.join(TRAIN_SMOKE_ARCHS)}; "
+          f"n_micro 1, 2): card agrees with the CPU path, worst relative "
+          f"difference {worst:.3g}; flash_attention under autograd raises",
+          flush=True)
 
 
-def probes(model):
-    """Small copies of a few weights, to see that a step moved them."""
-    blocks = model.blocks
-    return [t.detach()[:4, :8].clone() if t.dim() == 2 else
-            t.detach()[:8].clone()
-            for t in (model.embed, blocks[0].attn["wq"],
-                      blocks[-1].mlp["w_down"], blocks[0].norm1,
-                      model.norm_f)]
+#: each block kind's own leaves, as ``named_parameters`` names them
+KIND_LEAVES = {"attn": ("attn.wq",), "attn_local": ("attn.wq",),
+               "rglru": ("rnn.w_gate_a", "rnn.w_gate_x", "rnn.lambda_p"),
+               "mlstm": ("rnn.w_up", "rnn.w_if"), "slstm": ("rnn.r_in",)}
+#: leaves held to a nonzero gradient but not to a move: RG-LRU's decay
+#: path, ``a = exp(-8 r softplus(lambda_p))`` with ``r`` from ``w_gate_a``.
+#: At the reference's init (``lambda_p`` from 4 to 9) ``a`` lies near e^-16
+#: to e^-36, so both get gradients far below AdamW's eps (1e-8), which
+#: scales their update under half an ulp (bf16 ``w_gate_a``, float32
+#: ``lambda_p`` near 4 to 9) in a few steps
+STILL_LEAVES = ("rnn.w_gate_a", "rnn.lambda_p")
+
+
+def train_leaves(model):
+    """The leaves a train step must reach in ``model``'s family: the
+    embedding, the first block of each kind's own weights (attention's
+    ``wq``, RG-LRU's gates and ``lambda_p``, mLSTM's ``w_up`` and ``w_if``,
+    sLSTM's ``r_in``), the first cross layer's ``cross`` weights, the
+    encoder's first block, the vision projection, the last MLP's
+    ``w_down`` or the last experts' router and ``w_up``, and the final
+    norm."""
+    names = ["embed"]
+    first = {}
+    for i, blk in enumerate(model.blocks):
+        first.setdefault(blk.kind, i)
+    for kind, i in first.items():
+        names += [f"blocks.{i}.{leaf}" for leaf in KIND_LEAVES[kind]]
+    cross = [i for i, blk in enumerate(model.blocks) if blk.cross is not None]
+    if cross:
+        names += [f"blocks.{cross[0]}.cross.{w}" for w in ("wq", "wk", "wv")]
+    if model.encoder is not None:
+        names += ["encoder.0.attn.wq", "encoder.0.mlp.w_up"]
+    if model.vision_proj is not None:
+        names.append("vision_proj")
+    ffn = [i for i, blk in enumerate(model.blocks) if blk.norm2 is not None]
+    if ffn:
+        i = ffn[-1]
+        names += ([f"blocks.{i}.moe.router", f"blocks.{i}.moe.w_up"]
+                  if model.blocks[i].moe is not None
+                  else [f"blocks.{i}.mlp.w_down"])
+    names += [n for n, _ in model.named_parameters()
+              if n == "norm_f" or n.startswith("norm_f.")]
+    return names
+
+
+class FirstGrads:
+    """Within ``with``: the largest absolute value of the first gradient
+    autograd accumulates into each of ``params`` (name to leaf), kept on
+    the card (``post_accumulate_grad`` hooks)."""
+
+    def __init__(self, params):
+        self.params = params
+        self.seen = {}
+        self.handles = []
+
+    def __enter__(self):
+        import torch
+        for name, p in self.params.items():
+            def hook(p, name=name):
+                if name not in self.seen:   # no temporary of the grad's size
+                    self.seen[name] = torch.linalg.vector_norm(
+                        p.grad.detach(), float("inf"))
+            self.handles.append(p.register_post_accumulate_grad_hook(hook))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def values(self):
+        return {n: float(v) for n, v in self.seen.items()}
 
 
 #: substrings of cuBLAS's matrix-product kernel names (nvjet: CUDA 12.8's)
 GEMM_NAMES = ("gemm", "cutlass", "nvjet", "xmma")
+
+
+def kernel_rows(prof):
+    """(device us, kernel name, launches) of a profile's CUDA activity,
+    longest first, summed from the profiler's raw records: ``device_rows``'
+    ``key_averages`` builds a Python event for each record first, which
+    the ~300,000 launches of xlstm-1.3b's train step would keep busy for
+    about a minute."""
+    import torch
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation():
+            us, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, name[:80], n) for name, (us, n) in acc.items()),
+                  reverse=True)
 
 
 def train_breakdown(tr):
@@ -3153,7 +3267,7 @@ def train_breakdown(tr):
     params = dict(model.named_parameters())
     batch = to_device(tr.data.batch_at(tr.data_state.step), "cuda")
 
-    def step(ev):
+    def step(ev, batch):
         ev[0].record()
         T.loss_fn(model, tr.cfg, batch, use_flash=False).backward()
         ev[1].record()
@@ -3168,39 +3282,47 @@ def train_breakdown(tr):
         torch.cuda.synchronize()
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    step(ev)
+    step(ev, batch)
     out = {"forward_backward_ms": ev[0].elapsed_time(ev[1]),
            "clip_ms": ev[1].elapsed_time(ev[2]),
            "update_ms": ev[2].elapsed_time(ev[3])}
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        step([torch.cuda.Event(enable_timing=True) for _ in range(4)])
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
+    # the card's activity only: host-side operator events cost the
+    # profiler's post-processing about 1 ms a kernel
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step([torch.cuda.Event(enable_timing=True) for _ in range(4)], batch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     gemm_ms = sum(us for us, n, _ in rows
                   if any(g in n.lower() for g in GEMM_NAMES)) / 1e3
-    out.update({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    out.update({"profiled_tokens": list(batch["tokens"].shape),
+                "profiler_s": time.perf_counter() - t0,
+                "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "profiled_idle_share": 1 - busy_ms / wall_ms,
-                "gemm_ms": gemm_ms, "kernels": sum(c for _, _, c in rows),
+                "gemm_ms": gemm_ms, "gemm_share": gemm_ms / busy_ms,
+                "kernels": sum(c for _, _, c in rows),
                 "top": [{"name": n, "ms": us / 1e3, "count": c}
                         for us, n, c in rows[:8]]})
     return out
 
 
-def train_full(optimizer, steps, workdir):
-    """The launcher's trainer for chatglm3-6b at full width on the card:
-    ``steps`` steps, no flash launch, the parameters moved, the first loss
-    against ``loss_fn`` under ``no_grad``; per-step ms, tokens/s and the
-    peak memory."""
+def train_full(arch, optimizer, steps, seq, workdir):
+    """The launcher's trainer for ``arch`` at full width on the card,
+    ``TRAIN_BATCH`` x ``seq`` tokens a step (``optimizer`` None: the
+    launcher's rule): the cross gates at ``CROSS_GATE``, ``steps`` steps,
+    no kernel launch, finite losses and grad norms, the first loss against
+    ``loss_fn`` under ``no_grad``, each of ``train_leaves`` given a nonzero
+    gradient by the first step and moved (but ``STILL_LEAVES``); per-step
+    ms, tokens/s and the peak memory, granite's aux loss and dropped-slot
+    share, and a step in its parts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launcher
     from repro_torch.models import transformer as T
-    from repro_torch.train.step import to_device
-    argv = ["--arch", TRAIN["arch"], "--full", "--steps", str(steps),
-            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+    from repro_torch.train.step import auto_microbatches, to_device
+    argv = ["--arch", arch, "--full", "--steps", str(steps),
+            "--batch", str(TRAIN_BATCH), "--seq", str(seq),
             "--device", "cuda", "--workdir", workdir]
     if optimizer:
         argv += ["--optimizer", optimizer]
@@ -3212,49 +3334,74 @@ def train_full(optimizer, steps, workdir):
     try:
         if tr.ckpt_every <= steps:
             fail(f"the launcher would checkpoint every {tr.ckpt_every} steps")
-        cfg = tr.cfg
-        n_params = sum(p.numel() for p in tr.state.params.parameters())
+        cfg, model = tr.cfg, tr.state.params
+        set_gates(model, CROSS_GATE)
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = to_device(tr.data.batch_at(0), "cuda")
+        moe = {}
         with torch.no_grad():
-            want = float(T.loss_fn(tr.state.params, cfg, to_device(
-                tr.data.batch_at(0), "cuda"), use_flash=False))
-        before = probes(tr.state.params)
+            want = float(T.loss_fn(model, cfg, batch, use_flash=False))
+            if cfg.moe_experts:  # batch 0's routing at the first step
+                with Routing() as routes:
+                    _, aux = T.hidden_forward(model, cfg, batch["tokens"],
+                                              use_flash=False)
+                moe = {"aux_loss": float(aux),
+                       "dropped_slot_share": dropped_share(routes.seen, cfg)}
+        params = dict(model.named_parameters())
+        leaves = {n: params[n] for n in train_leaves(model)}
+        before = {n: p.detach().to("cpu", copy=True)
+                  for n, p in leaves.items()}
         ops.reset_launch_counts()
-        out = tr.run(log_every=1)
+        with FirstGrads(leaves) as first:
+            out = tr.run(log_every=1)
         launches = ops.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         if any(launches.values()):
-            fail(f"training at full width launched kernels: {launches}")
+            fail(f"{arch} training at full width launched kernels: "
+                 f"{launches}")
         ms = [m["dt"] * 1e3 for m in out["metrics"]]
         losses = [m["loss"] for m in out["metrics"]]
         norms = [m["grad_norm"] for m in out["metrics"]]
         if out["final_step"] != steps or len(ms) != steps:
-            fail(f"full-width training ran {out['final_step']} steps")
+            fail(f"{arch} full-width training ran {out['final_step']} steps")
         if not all(abs(v) < float("inf") for v in losses + norms):
-            fail(f"non-finite loss or grad norm: {losses} {norms}")
+            fail(f"{arch}: non-finite loss or grad norm: {losses} {norms}")
         if abs(losses[0] - want) > 1e-3 * abs(want):
-            fail(f"first step's loss {losses[0]} vs loss_fn {want}")
-        after = probes(tr.state.params)
-        moved = [not torch.equal(a, b) for a, b in zip(before, after)]
-        if not all(moved):
-            fail(f"a step left weights unchanged: {moved}")
-        tokens = TRAIN["batch"] * TRAIN["seq"]
+            fail(f"{arch}: first step's loss {losses[0]} vs loss_fn {want}")
+        grads = first.values()
+        if sorted(grads) != sorted(leaves) or \
+                not all(0 < g < float("inf") for g in grads.values()):
+            fail(f"{arch}: the first step's largest gradients {grads}")
+        moved = {n: int((p != before[n].to(p.device)).sum()) / p.numel()
+                 for n, p in leaves.items()}
+        del before
+        if not all(v for n, v in moved.items()
+                   if not n.endswith(STILL_LEAVES)):
+            fail(f"{arch}: the steps left a leaf unchanged: {moved}; "
+                 f"first-step gradients {grads}")
+        tokens = TRAIN_BATCH * seq
         steady = statistics.median(ms[1:])
-        stats = {"optimizer": type(tr.optimizer).__name__,
-                 "params": n_params, "batch": TRAIN["batch"],
-                 "seq": TRAIN["seq"], "layers": cfg.n_layers,
-                 "remat": cfg.remat, "init_s": init_s,
-                 "loss": losses, "grad_norm": norms, "ms": ms,
-                 "first_step_ms": ms[0], "ms_per_step": steady,
+        stats = {"arch": arch, "optimizer": type(tr.optimizer).__name__,
+                 "params": n_params,
+                 "adamw_reckoned_gb": 12 * n_params / 1e9,
+                 "batch": TRAIN_BATCH, "seq": seq,
+                 "layers": cfg.n_layers, "remat": cfg.remat,
+                 "n_micro": auto_microbatches(cfg, TRAIN_BATCH, seq),
+                 "init_s": init_s, "loss": losses, "grad_norm": norms,
+                 "ms": ms, "first_step_ms": ms[0], "ms_per_step": steady,
                  "tokens_per_s": tokens / steady * 1e3,
-                 "tokens_per_s_by_step": [tokens / t * 1e3 for t in ms],
                  "loss_fn_no_grad": want,
                  "first_loss_rel_err": abs(losses[0] - want) / abs(want),
-                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                 "flash_launches": launches["flash_attention"],
+                 "first_step_max_abs_grad": grads, "moved_share": moved,
+                 "peak_gib": peak_gib, "launches": launches,
                  "card": card_line()}
-        stats["breakdown"] = train_breakdown(tr)   # after the checks
+        stats.update(moe)
+        # after the checks
+        stats["breakdown"] = train_breakdown(tr)
+        stats["seconds"] = time.perf_counter() - t0
         for m in out["metrics"]:
-            print(f"  step {m['step']}: loss {m['loss']:.6f}  grad norm "
-                  f"{m['grad_norm']:.6f}  {m['dt'] * 1e3:.2f} ms  "
+            print(f"  {arch} step {m['step']}: loss {m['loss']:.6f}  grad "
+                  f"norm {m['grad_norm']:.6f}  {m['dt'] * 1e3:.2f} ms  "
                   f"{tokens / m['dt']:.1f} tokens/s  peak "
                   f"{stats['peak_gib']:.2f} GiB  ({stats['card']})",
                   flush=True)
@@ -3267,51 +3414,62 @@ def train_full(optimizer, steps, workdir):
 
 
 def phase_train_full():
-    """chatglm3-6b at full width and depth: 6 AdamW steps through the
-    launcher's trainer, then 3 Adafactor steps after the AdamW state is
-    freed."""
+    """Each of ``TRAIN_ARCHS`` at full width and depth through the
+    launcher's trainer."""
     import tempfile
+    out = {}
     with tempfile.TemporaryDirectory() as d:
-        adamw = train_full(None, TRAIN["steps"], d + "/adamw")
-        print(f"LM training ({TRAIN['arch']} full width, AdamW): "
-              + json.dumps(adamw), flush=True)
-        adafactor = train_full("adafactor", TRAIN["adafactor_steps"],
-                               d + "/adafactor")
-        print(f"LM training ({TRAIN['arch']} full width, Adafactor): "
-              + json.dumps(adafactor), flush=True)
-    return adamw, adafactor
+        for arch, optimizer, steps, seq in TRAIN_ARCHS:
+            st = train_full(arch, optimizer, steps, seq, f"{d}/{arch}")
+            print(f"LM training ({arch} full width, {st['optimizer']}): "
+                  + json.dumps(st), flush=True)
+            out[arch] = st
+    return out
 
 
 def phase_train_restart():
-    """At the smoke config on the card: 20 steps straight against 10
-    steps, a restart from the checkpoint, and 10 more; the losses after
-    the restart must be bitwise equal."""
+    """At each ``RESTART_ARCHS`` smoke config on the card (the cross gates
+    at ``CROSS_GATE``): 20 steps straight against 10 steps, a restart from
+    the checkpoint, and 10 more; the losses after the restart must be
+    bitwise equal."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.train.trainer import Trainer
-    cfg = get_config(TRAIN["arch"], smoke=True)
     kw = dict(device="cuda", global_batch=4, seq_len=64, total_steps=20,
               ckpt_every=10, lr=1e-3)
-    with tempfile.TemporaryDirectory() as d:
-        straight = Trainer(cfg, d + "/a", **kw)
-        ref = {m["step"]: m["loss"]
-               for m in straight.run(log_every=1)["metrics"]}
-        straight.close()
-        first = Trainer(cfg, d + "/b", **kw)
-        first.run(n_steps=10, log_every=1)
-        first.close()
-        second = Trainer(cfg, d + "/b", **kw)
-        if second.data_state.step != 10:
-            fail(f"restart resumed at step {second.data_state.step}")
-        got = {m["step"]: m["loss"]
-               for m in second.run(log_every=1)["metrics"]}
-        second.close()
-    if sorted(got) != list(range(10, 20)) or \
-            any(got[s] != ref[s] for s in got):
-        fail(f"losses after the restart differ: {got} vs {ref}")
-    print(f"checkpoint restart on the card ({cfg.arch} smoke, 10 + 10 "
-          f"steps against 20): losses after the restart bitwise equal "
-          f"({got[10]:.6f} ... {got[19]:.6f})", flush=True)
+
+    def trainer(cfg, workdir):
+        tr = Trainer(cfg, workdir, **kw)
+        if tr.data_state.step == 0:
+            set_gates(tr.state.params, CROSS_GATE)
+        return tr
+
+    last = {}
+    for arch in RESTART_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        with tempfile.TemporaryDirectory() as d:
+            straight = trainer(cfg, d + "/a")
+            ref = {m["step"]: m["loss"]
+                   for m in straight.run(log_every=1)["metrics"]}
+            straight.close()
+            first = trainer(cfg, d + "/b")
+            first.run(n_steps=10, log_every=1)
+            first.close()
+            second = trainer(cfg, d + "/b")
+            if second.data_state.step != 10:
+                fail(f"{arch}: restart resumed at step "
+                     f"{second.data_state.step}")
+            got = {m["step"]: m["loss"]
+                   for m in second.run(log_every=1)["metrics"]}
+            second.close()
+        if sorted(got) != list(range(10, 20)) or \
+                any(got[s] != ref[s] for s in got):
+            fail(f"{arch} smoke: losses after the restart differ: {got} vs "
+                 f"{ref}")
+        last[arch] = got[19]
+    print(f"checkpoint restarts on the card (smoke configs, 10 + 10 steps "
+          f"against 20): losses after the restart bitwise equal; last "
+          f"losses {json.dumps(last)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3390,13 +3548,14 @@ FLASH_WHISPER = FLASH_CASES[-2]
 #: gemma2's "attn" layers too): prefills of 2 x 8,192 tokens, so the window
 #: bites, flash on the wgmma kernel (D = 256 with softcap 50; D = 120 on
 #: D = 128's plan), logits bitwise on a rerun; the launchers teacher-force 4
-#: x 256 tokens, then decode 32.  gemma2-9b: 42 layers, d_model 3,584, 16 /
+#: x 128 (gemma2-9b; 256 until the clock cut it) and 4 x 256 tokens
+#: (h2o-danube-3-4b), then decode 32.  gemma2-9b: 42 layers, d_model 3,584, 16 /
 #: 8 heads of 256, 9.24 B parameters; h2o-danube-3-4b: 24 layers, d_model
 #: 3,840, 32 / 8 heads of 120, 3.84 B
 GEMMA = dict(arch="gemma2-9b", batch=2, seq=8192, launch_batch=4,
-             prompt_len=256, new_tokens=32, flash_variant="wgmma",
+             prompt_len=128, new_tokens=32, flash_variant="wgmma",
              rerun=True)
-DANUBE = dict(GEMMA, arch="h2o-danube-3-4b")
+DANUBE = dict(GEMMA, arch="h2o-danube-3-4b", prompt_len=256)
 #: flash_attention at their prefills: 25,167,872 attended (query, key)
 #: pairs per (batch, head), 8.25e11 and 7.73e11 flops
 FLASH_GEMMA = (2, 8192, 8192, 16, 8, 256, True, 4096, 50.0)
@@ -3811,9 +3970,12 @@ def main() -> int:
     long_study_launches = phase_select_topk_long()
     stamp("smoke configs card vs CPU and select_topk past 65,535", start)
     phase_train_card_vs_cpu()
-    phase_train_full()
     phase_train_restart()
-    stamp("training", start)
+    stamp("training: smoke configs card vs CPU and restarts", start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train_full()
+    stamp("training at full width: " + ", ".join(train), start)
     gc.collect()
     torch.cuda.empty_cache()
     flash_moe = phase_flash_shape(MOE["arch"], FLASH_MOE, "wgmma")
@@ -3956,7 +4118,9 @@ def main() -> int:
              gemma2_shape=flash_gemma, danube_shape=flash_danube,
              gemma2_device_ms=flash_gemma["device_ms"],
              danube_device_ms=flash_danube["device_ms"],
-             window_decode=window_decode),
+             window_decode=window_decode,
+             train_full_launches={a: st["launches"]["flash_attention"]
+                                  for a, st in train.items()}),
     ]
     lossy = [x for x in FILLER_LOSS if x]
     print(f"profiler windows: {len(FILLER_LOSS)} in {PROFILED_S[0]:.1f} s, "

@@ -56,7 +56,7 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
-ARCHS = ["chatglm3-6b", "gemma2-9b"]
+ARCHS = ["chatglm3-6b", "gemma2-9b", "h2o-danube-3-4b"]
 LOSS_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 

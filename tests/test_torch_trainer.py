@@ -14,7 +14,6 @@ import json
 import os
 import signal
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -27,6 +26,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.train import make_state  # noqa: E402
+from repro_torch.train import trainer as trainer_module  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 
 
@@ -101,21 +101,58 @@ def test_sigterm_requests_a_stop_and_close_restores_the_handler(
         assert signal.getsignal(signal.SIGTERM) == before
 
 
-def test_straggler_detection(small_trainer):
+class ScriptedClock:
+    """Stands in for the ``time`` module that ``repro_torch.train.trainer``
+    reads.  ``perf_counter`` returns the scripted time, which moves only
+    where the test wraps code: a wrapped train step adds the step's
+    scripted duration, wrapped host work ``OUTSIDE_S``.  A step time that
+    equals its script therefore spans the train step and nothing else,
+    whatever the host's load."""
+
+    OUTSIDE_S = 10.0
+
+    def __init__(self, durations):
+        self.durations = list(durations)
+        self._next = iter(self.durations)
+        self._now = 0.0
+
+    def perf_counter(self):
+        return self._now
+
+    def step(self, fn):
+        def timed(*args, **kw):
+            out = fn(*args, **kw)
+            self._now += next(self._next)
+            return out
+        return timed
+
+    def outside(self, fn):
+        def timed(*args, **kw):
+            self._now += self.OUTSIDE_S
+            return fn(*args, **kw)
+        return timed
+
+
+def test_straggler_detection(small_trainer, monkeypatch):
+    """A warm-up that settles, then steps of 0.1 s with a millisecond's
+    jitter; step 24 takes 1 s more.  Each logged step time is its scripted
+    duration (the batch's 10 s on the host are not in it), and the
+    detector (the reference's EWMA z-score) flags step 24 and no other."""
+    durations = [0.5, 0.3, 0.2, 0.15, 0.12, 0.11, 0.105] + \
+        [0.1 + 0.001 * ((7 * i) % 5 - 2) for i in range(7, 40)]
+    durations[24] += 1.0
+    clock = ScriptedClock(durations)
+    monkeypatch.setattr(trainer_module, "time", clock)
     tr = small_trainer("s", total_steps=40, ckpt_every=1000,
                        straggler_z=2.5, lr=3e-4)
-    orig = tr.train_step
-    calls = {"n": 0}
-
-    def slow_step(state, batch):
-        calls["n"] += 1
-        if calls["n"] == 25:
-            time.sleep(1.0)   # injected straggler
-        return orig(state, batch)
-
-    tr.train_step = slow_step
-    out = tr.run(n_steps=40)
-    assert 24 in [s[0] for s in out["stragglers"]]
+    tr.train_step = clock.step(tr.train_step)
+    monkeypatch.setattr(tr.data, "batch_at", clock.outside(tr.data.batch_at))
+    out = tr.run(n_steps=40, log_every=1)
+    assert out["final_step"] == 40
+    assert [m["step"] for m in out["metrics"]] == list(range(40))
+    assert [m["dt"] for m in out["metrics"]] == \
+        pytest.approx(durations, rel=0, abs=1e-9)
+    assert [s[0] for s in out["stragglers"]] == [24]
 
 
 def test_elastic_restore_resumes(small_trainer):
