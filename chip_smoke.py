@@ -78,8 +78,9 @@ is taken again (the counts are printed at the end).
    ``Study.run``'s rows and to a rerun, 60 cluster launches; (b)
    ``Study.tune(executor="async", slots=1)`` against ``Study.tune``,
    budget 26, seed 0, histories bitwise equal, one block launch per
-   model-phase ask (the 26th); (c) ``Study.tune(budget=100, executor="async",
-   slots=4, scheduler="asha")`` on thread slots with a journal: cluster
+   model-phase ask (the 26th); (c) ``Study.tune(budget=40, executor="async",
+   slots=4, scheduler="asha")`` (100 until it was cut for the clock) on
+   thread slots with a journal: cluster
    launches equal to the epochs evaluated, no failed trial; makespan,
    slot utilization, ASHA's saved share and the incumbent beside the sync
    budget-100 wall of (b) above, its journal valid under
@@ -273,9 +274,9 @@ is taken again (the counts are printed at the end).
 27. the xlstm-1.3b serving path at full width and depth (48 layers: 42
     mLSTM, 6 sLSTM): a prefill of 4 x 2,048 tokens launching no kernel,
     finite logits bitwise equal on a rerun, prefill ms and tokens/s, a
-    profiled prefill of its first 512 tokens (the sLSTM loop's ~140
+    profiled prefill of its first 128 tokens (the sLSTM loop's ~140
     kernels a token make the profiler's post-processing the phase's
-    longest step at 2,048) with the sLSTM loop's and the mLSTM chunks'
+    longest step at 2,048; 512 until it was cut for the clock) with the sLSTM loop's and the mLSTM chunks'
     device and host ms; then its launcher (a prompt of 128 tokens), as
     above, its prompt logits against a prefill whose mLSTM layers run at
     chunk 1 (what decode computes; the reference's mLSTM clamps within a
@@ -299,12 +300,12 @@ is taken again (the counts are printed at the end).
     within ``LM_LOGIT_TOL`` and bitwise on a rerun, the logits moved by
     another draw of the stub input, a profiled prefill with the cross
     path's shares (K/V projections, the cross sub-layer, the inline
-    ``_sdpa``); its launcher (``--batch 4 --prompt-len 256 --new-tokens
+    ``_sdpa``); its launcher (``--batch 4 --prompt-len 128 --new-tokens
     32``, the cross K/V primed from the launcher's stub input) on the same
     weights, prompt logits against prefill's; then whisper-base at full
     width and depth (6 encoder and 6 decoder layers, 1,500 frames) the
     same way, a prefill of 4 x 512 decoder tokens (flash exactly 6 times,
-    all ``wgmma``; the encoder's share reported), its launcher 4 x 512 +
+    all ``wgmma``; the encoder's share reported), its launcher 4 x 128 +
     32;
 30. the sliding-window dense families past their window: ``flash_attention``
     at gemma2-9b's prefill (q (2, 8192, 16, 256), k/v (2, 8192, 8, 256),
@@ -325,7 +326,23 @@ is taken again (the counts are printed at the end).
     logits against prefill's; then both smoke configs (window 32) through
     64 teacher-forced decode steps, twice around their rings, card against
     the CPU path within ``LM_LOGIT_TOL`` at every step;
-31. one JSON line per the kernel table, the card line again, and as the
+31. multi-card on one card (``phase_mesh``): the dry-run of
+    command-r-plus-104b's and kimi-k2-1t-a32b's ``train_4k`` cells at full
+    width on the (16, 16) production mesh (256 fake ranks, fake tensors:
+    ``python -m repro_torch.launch.dryrun``, one subprocess each, started
+    before phase 20 and run on the host while the card trains, each
+    bounded by ``DRYRUN_BOUND_S`` from its start), their per-rank bytes
+    and peak against the card's memory; the sharded ``Trainer`` on a (1, 1) ("data",
+    "model") mesh over NCCL at granite-moe-1b-a400m's full width and depth
+    (4 x 512, AdamW, 4 steps, ``set_moe_buffer_sharding`` on) against the
+    unsharded trainer from the same seed: losses bitwise, ms per step and
+    peak GiB side by side, no kernel launched (the counters set to 0
+    before and read after the mesh run); then an elastic round trip at
+    granite's full width cut to 2 layers (the checkpoint's full arrays
+    then take seconds): 4 steps on the mesh, a checkpoint,
+    ``restore_elastic`` onto the plain device for a step, a checkpoint,
+    back onto the mesh for a step, every loss bitwise the unsharded run's;
+32. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1166,9 +1183,9 @@ def phase_engine_sweep(device="cuda", scale=SCALE):
 # asynchronous and online tuning: segments, the tune service, the online
 # re-tuner on the GUPS deployment
 # ---------------------------------------------------------------------------
-#: the async study at the paper's budget: 4 thread slots, ASHA rungs at
-#: 15, 30 and 60 epochs
-TS_KW = dict(budget=100, seed=0, executor="async", slots=4,
+#: the async study: 4 thread slots, ASHA rungs at 15, 30 and 60 epochs;
+#: budget 40 (the paper's 100 until it was cut for the clock)
+TS_KW = dict(budget=40, seed=0, executor="async", slots=4,
              scheduler="asha")
 #: the twin study of thread against process slots (its budget and (b)'s
 #: are the ones lowered when the phase runs long)
@@ -1211,7 +1228,7 @@ def journal_schema_ok(*paths):
 
 def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
     """(a) segments against Study.run; (b) async at one slot against sync;
-    (c) the paper's budget on 4 thread slots with ASHA; (e) process slots
+    (c) ASHA on 4 thread slots; (e) process slots
     against thread slots; (d) (e)'s study in a SIGKILLed child, resumed;
     (f) online re-tuning on drift-hotspot."""
     import os
@@ -1312,7 +1329,7 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
           f"{w_async:.3f} s", flush=True)
     print(f"tune service (b) seconds {out['b_s']:.3f}", flush=True)
 
-    # (c) the paper's budget on 4 thread slots with ASHA ((g1) reruns it
+    # (c) ASHA on 4 thread slots ((g1) reruns it
     # on the fleet)
     t0 = time.perf_counter()
     first = TS_DIR / "asha0.jsonl"
@@ -1338,7 +1355,8 @@ def phase_tune_service(bo_wall_s, device="cuda", scale=SCALE):
         "stopped_early": res.n_stopped_early, "launches": c_counts,
         "best_s": res.best_value, "default_s": res.default_value,
         "sync_q4_wall_s": bo_wall_s}
-    print(f"tune service (c) ASHA budget 100, 4 thread slots: makespan "
+    print(f"tune service (c) ASHA budget {TS_KW['budget']}, 4 thread "
+          f"slots: makespan "
           f"{res.makespan_s:.3f} s, slot utilization "
           f"{res.utilization:.4f}, asha_epochs_saved_frac "
           f"{res.asha_epochs_saved_frac:.4f} ({res.n_stopped_early} "
@@ -1537,7 +1555,7 @@ def phase_fleet(asha, small, device="cuda", scale=SCALE):
     from repro_torch.kernels import ops
     out = {}
 
-    # (g1) the paper's budget on 4 spawned workers
+    # (g1) (c)'s study on 4 spawned workers
     t0 = time.perf_counter()
     path = TS_DIR / "fleet.jsonl"
     ops.reset_launch_counts()
@@ -1589,7 +1607,8 @@ def phase_fleet(asha, small, device="cuda", scale=SCALE):
     expires = [(e["unit"], e["attempt"], e["reason"]) for e in events
                if e["event"] == "expire"]
     if expires != [(2, 0, "worker-dead")]:
-        fail(f"(g2) expiries {expires}")
+        fail(f"(g2) expiries {expires}, receipt {rc}, seconds to recover "
+             f"{killed.fleet['time_to_recover_s']}")
     out["g2_s"] = time.perf_counter() - t0
     out["g2"] = {"kill_wall_s": kill_s, "receipt": rc,
                  "recover_s": killed.fleet["time_to_recover_s"]}
@@ -2273,8 +2292,9 @@ def phase_serving_tune():
 #: H100 SXM dense bf16 tensor-core rate (FLOP/s), NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12
 #: the LM main path: chatglm3-6b at full width, prefill of 4 x 2,048 tokens;
-#: the launcher teacher-forces 4 x 512 tokens, then decodes 32
-LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=512,
+#: the launcher teacher-forces 4 x 128 tokens (512 until it was cut for the
+#: clock), then decodes 32
+LM = dict(arch="chatglm3-6b", batch=4, seq=2048, prompt_len=128,
           new_tokens=32)
 #: bf16 logits: largest |difference| over the largest |reference logit|
 LM_LOGIT_TOL = 3e-2
@@ -3477,8 +3497,9 @@ def phase_train_restart():
 # ---------------------------------------------------------------------------
 #: the MoE serving path: granite-moe-1b-a400m at full width and depth (24
 #: layers, 32 experts, top-8), prefill of 4 x 2,048 tokens; the launcher
-#: teacher-forces 4 x 512 tokens, then decodes 32
-MOE = dict(arch="granite-moe-1b-a400m", batch=4, seq=2048, prompt_len=512,
+#: teacher-forces 4 x 128 tokens (512 until it was cut for the clock), then
+#: decodes 32
+MOE = dict(arch="granite-moe-1b-a400m", batch=4, seq=2048, prompt_len=128,
            new_tokens=32)
 #: the MoE smoke configs the card is held to the CPU path on
 MOE_SMOKE_ARCHS = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
@@ -3487,10 +3508,11 @@ RNN_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")
 #: recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
 #: attention at D = 256 with 10 query heads on one KV head, window 2,048):
 #: prefill of 2 x 4,096 tokens, so the window bites, flash on the wgmma
-#: kernel; the launcher teacher-forces 4 x 512 tokens, then decodes 32.
+#: kernel; the launcher teacher-forces 4 x 128 tokens (512 until it was cut
+#: for the clock), then decodes 32.
 #: The profile reports the RG-LRU scan's share.
 RG = dict(arch="recurrentgemma-2b", batch=2, seq=4096, launch_batch=4,
-          prompt_len=512, new_tokens=32, flash_variant="wgmma",
+          prompt_len=128, new_tokens=32, flash_variant="wgmma",
           ranges={"rglru_scan": ("repro_torch.models.layers",
                                  "associative_scan")})
 #: flash_attention at recurrentgemma's prefill: q (2, 4096, 10, 256), k/v
@@ -3506,7 +3528,7 @@ FLASH_RG = FLASH_CASES[-1]
 #: Its prefill is host-bound (2,048 sLSTM steps a layer), so it is timed
 #: over 2 calls
 XL = dict(arch="xlstm-1.3b", batch=4, seq=2048, prompt_len=128,
-          new_tokens=32, reps=2, profile_seq=512,
+          new_tokens=32, reps=2, profile_seq=128,
           ranges={"slstm": ("repro_torch.models.layers", "slstm_apply"),
                   "mlstm": ("repro_torch.models.layers", "mlstm_apply")})
 #: the cross-attention archs, whose smoke configs phase 16 takes
@@ -3517,10 +3539,11 @@ CROSS_GATE = 0.5
 #: llama-3.2-vision-11b at full width and depth (40 layers, 8 of them cross
 #: layers over 1,601 patches of 1,280; 32 query heads on 8 KV heads of
 #: 128): prefill of 4 x 2,048 tokens, flash on the wgmma kernel at group
-#: size 4; the launcher teacher-forces 4 x 256 tokens (within the clock),
+#: size 4; the launcher teacher-forces 4 x 128 tokens (256 until it was cut
+#: for the clock),
 #: then decodes 32.  The profile reports the cross path's
 #: shares
-VLM = dict(arch="llama-3.2-vision-11b", batch=4, seq=2048, prompt_len=256,
+VLM = dict(arch="llama-3.2-vision-11b", batch=4, seq=2048, prompt_len=128,
            new_tokens=32,
            ranges={"cross_layer": ("repro_torch.models.transformer",
                                    "_cross"),
@@ -3531,9 +3554,10 @@ VLM = dict(arch="llama-3.2-vision-11b", batch=4, seq=2048, prompt_len=256,
 #: d_model 512, 8/8 heads of 64, 1,500 frames): prefill of 4 x 512 decoder
 #: tokens (512 is the flash threshold; whisper's own text context is 448,
 #: which takes the inline _sdpa), flash on the wgmma kernel at D = 64, group
-#: size 1; the launcher teacher-forces 4 x 512 tokens, then decodes 32.
+#: size 1; the launcher teacher-forces 4 x 128 tokens (512 until it was cut
+#: for the clock), then decodes 32.
 #: The profile reports the encoder's and the cross path's shares
-WHISPER = dict(arch="whisper-base", batch=4, seq=512, prompt_len=512,
+WHISPER = dict(arch="whisper-base", batch=4, seq=512, prompt_len=128,
                new_tokens=32,
                ranges={"encoder": ("repro_torch.models.transformer",
                                    "_encode"),
@@ -3548,14 +3572,13 @@ FLASH_WHISPER = FLASH_CASES[-2]
 #: gemma2's "attn" layers too): prefills of 2 x 8,192 tokens, so the window
 #: bites, flash on the wgmma kernel (D = 256 with softcap 50; D = 120 on
 #: D = 128's plan), logits bitwise on a rerun; the launchers teacher-force 4
-#: x 128 (gemma2-9b; 256 until the clock cut it) and 4 x 256 tokens
-#: (h2o-danube-3-4b), then decode 32.  gemma2-9b: 42 layers, d_model 3,584, 16 /
+#: x 128 tokens (256 until the clock cut them), then decode 32.  gemma2-9b: 42 layers, d_model 3,584, 16 /
 #: 8 heads of 256, 9.24 B parameters; h2o-danube-3-4b: 24 layers, d_model
 #: 3,840, 32 / 8 heads of 120, 3.84 B
 GEMMA = dict(arch="gemma2-9b", batch=2, seq=8192, launch_batch=4,
              prompt_len=128, new_tokens=32, flash_variant="wgmma",
              rerun=True)
-DANUBE = dict(GEMMA, arch="h2o-danube-3-4b", prompt_len=256)
+DANUBE = dict(GEMMA, arch="h2o-danube-3-4b")
 #: flash_attention at their prefills: 25,167,872 attended (query, key)
 #: pairs per (batch, head), 8.25e11 and 7.73e11 flops
 FLASH_GEMMA = (2, 8192, 8192, 16, 8, 256, True, 4096, 50.0)
@@ -3884,6 +3907,184 @@ def phase_window_decode():
     return stats
 
 
+MESH = dict(arch="granite-moe-1b-a400m", batch=4, seq=512, steps=4,
+            elastic_layers=2)
+#: the full-width dry-run cells (the (16, 16) mesh, train_4k)
+DRYRUN_ARCHS = ("command-r-plus-104b", "kimi-k2-1t-a32b")
+#: each dry-run subprocess's bound (they took 34 and 48 s on an 8-core
+#: CPU host, the two together)
+DRYRUN_BOUND_S = 300
+DRYRUN_DIR = ROOT / "build" / "dryrun_chip"
+
+
+def stop_procs(procs):
+    for _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def start_dryruns():
+    """The dry-run cells, one subprocess each, on the host (no card),
+    stopped at exit if they still run."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch in DRYRUN_ARCHS:
+        procs.append((arch, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k", "--mesh", "single", "--out",
+             str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    atexit.register(stop_procs, procs)
+    return procs, time.perf_counter()
+
+
+def finish_dryruns(procs, t0):
+    """Each cell done within ``DRYRUN_BOUND_S`` of its start (one still
+    running past it fails); its JSON and its per-rank bytes against the
+    card's memory."""
+    import torch
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch, p in procs:
+        left = DRYRUN_BOUND_S - (time.perf_counter() - t0)
+        try:
+            text, _ = p.communicate(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            fail(f"the {arch} dry-run ran past its {DRYRUN_BOUND_S} s bound")
+        if p.returncode != 0:
+            fail(f"the {arch} dry-run exited {p.returncode}: {text[-3000:]}")
+        res = json.loads((DRYRUN_DIR / f"{arch}__train_4k__single.json"
+                          ).read_text())
+        mem = res["memory"]
+        held = mem["param_bytes"] + mem["optimizer_bytes"] + \
+            mem["batch_bytes"]
+        res.update(card_bytes=hbm,
+                   held_share_of_card=held / hbm,
+                   peak_share_of_card=mem["peak_bytes"] / hbm,
+                   fits=mem["peak_bytes"] < hbm, card=card_line())
+        print(f"dry-run {arch} train_4k on (16, 16), per rank: params "
+              f"{mem['param_bytes']} B, optimizer {mem['optimizer_bytes']} "
+              f"B, batch {mem['batch_bytes']} B, peak {mem['peak_bytes']} B "
+              f"= {res['peak_share_of_card']:.4f} of the card's {hbm} B; "
+              f"{res['cost_analysis']['flops']:.6g} flops, "
+              f"{res['collective_bytes_total']} collective bytes; traced "
+              f"in {res['trace_s']:.1f} s ({res['card']})", flush=True)
+        out[arch] = res
+    return out
+
+
+def mesh_run(tr, steps):
+    """Losses and ms of ``steps`` more steps (``run`` returns its whole
+    log)."""
+    out = tr.run(n_steps=steps, log_every=1)["metrics"][-steps:]
+    return [m["loss"] for m in out], [m["dt"] * 1e3 for m in out]
+
+
+def same_losses(got, want, what):
+    """Bitwise, or else within 1e-6 relative (reported)."""
+    if got == want:
+        return True
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or worst > 1e-6:
+        fail(f"{what}: losses {got} against the unsharded {want}")
+    print(f"{what}: losses within {worst:.3g} relative, not bitwise",
+          flush=True)
+    return False
+
+
+def phase_mesh(procs, t_dry):
+    """Phase 31: the (1, 1) mesh trainer against the unsharded one, the
+    elastic round trip, and the dry-run subprocesses (started before
+    phase 20, so that they trace on the host while the card trains)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train.trainer import Trainer
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        L.set_moe_buffer_sharding(("model", "data", None))
+        cfg = get_config(MESH["arch"])
+        kw = dict(global_batch=MESH["batch"], seq_len=MESH["seq"],
+                  total_steps=100, ckpt_every=1000, optimizer="adamw",
+                  seed=0)
+        res = {}
+        with tempfile.TemporaryDirectory() as d:
+            for name in ("plain", "mesh"):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                tr = Trainer(cfg, f"{d}/{name}", device="cuda", **kw) \
+                    if name == "plain" else Trainer(cfg, mesh, f"{d}/{name}",
+                                                    **kw)
+                try:
+                    ops.reset_launch_counts()
+                    losses, ms = mesh_run(tr, MESH["steps"])
+                    launches = ops.launch_counts()
+                finally:
+                    tr.close()
+                    del tr
+                res[name] = {"loss": losses, "ms": ms,
+                             "ms_per_step": statistics.median(ms[1:]),
+                             "peak_gib": torch.cuda.max_memory_allocated()
+                             / 2 ** 30, "launches": launches}
+                if any(launches.values()):
+                    fail(f"the {name} granite run launched kernels: "
+                         f"{launches}")
+            res["bitwise"] = same_losses(res["mesh"]["loss"],
+                                         res["plain"]["loss"],
+                                         "granite on the (1, 1) mesh")
+            small = dataclasses.replace(cfg, n_layers=MESH["elastic_layers"])
+            ref = Trainer(small, f"{d}/ref", device="cuda", **kw)
+            try:
+                want, _ = mesh_run(ref, MESH["steps"] + 2)
+            finally:
+                ref.close()
+                del ref
+            tr = Trainer(small, mesh, f"{d}/el", **kw)
+            try:
+                got, _ = mesh_run(tr, MESH["steps"])
+                save_checkpoint(f"{d}/el", tr.data_state.step, tr.state,
+                                aux={"data": tr.data_state.to_dict()})
+                tr.restore_elastic(torch.device("cuda"))
+                plain_dev = tr.mesh is None
+                got += mesh_run(tr, 1)[0]
+                save_checkpoint(f"{d}/el", tr.data_state.step, tr.state,
+                                aux={"data": tr.data_state.to_dict()})
+                tr.restore_elastic(mesh)
+                got += mesh_run(tr, 1)[0]
+            finally:
+                tr.close()
+                del tr
+            if not plain_dev:
+                fail("restore_elastic onto the device kept the mesh")
+            res["elastic"] = {"loss": got, "unsharded": want,
+                              "layers": MESH["elastic_layers"],
+                              "bitwise": same_losses(
+                                  got, want, "elastic mesh -> device -> "
+                                  "mesh")}
+        for name in ("plain", "mesh"):
+            r = res[name]
+            print(f"  granite {name}: losses {r['loss']}, "
+                  f"{r['ms_per_step']:.2f} ms/step ({r['ms']}), peak "
+                  f"{r['peak_gib']:.2f} GiB ({card_line()})", flush=True)
+        res["dryrun"] = finish_dryruns(procs, t_dry)
+        res["card"] = card_line()
+        print("mesh: " + json.dumps(res), flush=True)
+        return res
+    finally:
+        L.set_moe_buffer_sharding(None)
+        stop_procs(procs)
+
+
 #: the elapsed seconds at the last ``stamp``
 STAMPED = [0.0]
 
@@ -3974,6 +4175,7 @@ def main() -> int:
     stamp("training: smoke configs card vs CPU and restarts", start)
     gc.collect()
     torch.cuda.empty_cache()
+    dryruns = start_dryruns()
     train = phase_train_full()
     stamp("training at full width: " + ", ".join(train), start)
     gc.collect()
@@ -4036,6 +4238,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     window_decode = phase_window_decode()
     stamp("sliding window: gemma2-9b and h2o-danube-3-4b", start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(*dryruns)
+    mesh_launches = mesh["mesh"]["launches"]
+    stamp("multi-card on one card: the (1, 1) mesh and the dry-run", start)
 
     def row(name, mod, timing, by_path):
         out = {
@@ -4055,6 +4262,8 @@ def main() -> int:
         for key in ("variant", "old_variant", "old_ms", "old_device_ms"):
             if key in timing:
                 out[key] = timing[key]
+        # the mesh path (phase 31) launches no kernel
+        out["launches_by_path"]["mesh_train"] = mesh_launches.get(name, 0)
         return out
 
     flash_by_variant = {
@@ -4118,7 +4327,7 @@ def main() -> int:
              gemma2_shape=flash_gemma, danube_shape=flash_danube,
              gemma2_device_ms=flash_gemma["device_ms"],
              danube_device_ms=flash_danube["device_ms"],
-             window_decode=window_decode,
+             window_decode=window_decode, mesh=mesh,
              train_full_launches={a: st["launches"]["flash_attention"]
                                   for a, st in train.items()}),
     ]

@@ -1,5 +1,5 @@
-from .checkpoint import (CheckpointManager, latest_step, load_checkpoint,
-                         save_checkpoint)
+from .checkpoint import (CheckpointManager, barrier, latest_step,
+                         load_checkpoint, save_checkpoint)
 
-__all__ = ["CheckpointManager", "save_checkpoint", "load_checkpoint",
-           "latest_step"]
+__all__ = ["CheckpointManager", "barrier", "save_checkpoint",
+           "load_checkpoint", "latest_step"]

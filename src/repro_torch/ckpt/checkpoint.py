@@ -16,7 +16,12 @@ Guarantees (as ``repro.ckpt.checkpoint``'s):
   * bf16 is stored as float32 (npz cannot hold it), its dtype recorded, so
     the round trip is exact;
   * restore onto another device: :func:`load_checkpoint` puts every leaf on
-    the device it is asked for.
+    the device it is asked for;
+  * meshes: a DTensor leaf is saved as its full logical array (every rank
+    joins its ``full_tensor()``, rank 0 writes), so a checkpoint written at
+    any mesh loads at any other mesh or on a plain device, and the
+    reverse: a leaf is laid out as the tree it is loaded into is, or as
+    ``placements`` says.
 
 A tree is a ``NamedTuple`` (fields in order), a mapping (in insertion
 order), an ``nn.Module`` (its named parameters), a tensor, or an int or
@@ -36,7 +41,22 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch import distributed as D
+
+
+def _writes() -> bool:
+    """Rank 0 writes; every rank gathers."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Every rank waits for rank 0's write."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """``(path, leaf)`` pairs in the tree's fixed order."""
@@ -51,15 +71,29 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix.rstrip("/"), tree)]
 
 
+def _shard(full: torch.Tensor, like):
+    """``full`` laid out as DTensor ``like`` (each rank keeps its part)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full.to(D.local(like).device), like.device_mesh,
+                             like.placements, src_data_rank=None)
+
+
 def _unflatten(like, leaves: List[Any], device):
     """The tree of ``like`` with the next leaves of ``leaves`` (consumed
     from the front).  A module's parameters are written in place, after the
-    module is moved to ``device``; every other tensor is new."""
+    module is moved to ``device`` (a distributed module stays where its
+    shards are); every other tensor is new, a DTensor laid out as its
+    ``like``."""
     if isinstance(like, nn.Module):
-        like.to(device)
+        if D.ctx_of(like) is None:
+            like.to(device)
         with torch.no_grad():
             for _, p in like.named_parameters():
-                p.copy_(leaves.pop(0))
+                leaf = leaves.pop(0)
+                if D.is_dtensor(p):
+                    p.to_local().copy_(_shard(leaf.to(p.dtype), p).to_local())
+                else:
+                    p.copy_(leaf)
         return like
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_unflatten(getattr(like, f), leaves, device)
@@ -67,6 +101,8 @@ def _unflatten(like, leaves: List[Any], device):
     if isinstance(like, Mapping):
         return {k: _unflatten(v, leaves, device) for k, v in like.items()}
     leaf = leaves.pop(0)
+    if D.is_dtensor(like):
+        return _shard(leaf, like)
     if isinstance(like, torch.Tensor):
         return leaf.to(device)
     return type(like)(leaf.item())
@@ -75,6 +111,8 @@ def _unflatten(like, leaves: List[Any], device):
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array (bf16 as float32) and its dtype's name."""
     if isinstance(leaf, torch.Tensor):
+        if D.is_dtensor(leaf):
+            leaf = leaf.detach().full_tensor()
         t = leaf.detach().to("cpu", copy=True)  # a snapshot, even on the CPU
         name = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
@@ -118,8 +156,14 @@ def _write(directory: str, step: int, host, aux: Optional[dict]) -> str:
 
 def save_checkpoint(directory: str, step: int, tree,
                     aux: Optional[dict] = None) -> str:
-    """Synchronous save with atomic rename; returns the step's directory."""
-    return _write(directory, step, _to_host(tree), aux)
+    """Synchronous save with atomic rename; returns the step's directory.
+    On a mesh every rank calls it; it returns once rank 0 has written."""
+    host = _to_host(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _writes():
+        final = _write(directory, step, host, aux)
+    barrier()
+    return final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -135,10 +179,13 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
-                    device=None) -> Tuple[Any, Dict]:
+                    device=None, placements=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like`` on ``device`` (default:
     the device of its first tensor leaf).  Returns ``(tree, aux)``; the
-    leaves are cast back to their recorded dtypes."""
+    leaves are cast back to their recorded dtypes.  A DTensor leaf of
+    ``tree_like`` is re-sharded as it is laid out; ``placements`` maps a
+    leaf's path to ``(mesh, placements)`` to lay a plain leaf out as a
+    DTensor instead (tensors outside a module)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -167,8 +214,32 @@ def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
                                  f"{tuple(want.shape)}")
             dtype = getattr(torch, manifest["dtypes"][f"leaf_{i}"])
             leaves.append(torch.from_numpy(arr).to(dtype))
+    if placements:
+        tree_like = _with_layout(tree_like, placements)
     return _unflatten(tree_like, leaves, torch.device(device)), \
         manifest["aux"]
+
+
+def _with_layout(tree, placements, prefix: str = ""):
+    """``tree`` with each tensor leaf named in ``placements`` replaced by
+    an empty DTensor of that layout (a template for :func:`_unflatten`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, nn.Module):
+        return tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_with_layout(getattr(tree, f), placements,
+                                         f"{prefix}{f}/")
+                            for f in tree._fields))
+    if isinstance(tree, Mapping):
+        return {k: _with_layout(v, placements, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    path = prefix.rstrip("/")
+    if path in placements and isinstance(tree, torch.Tensor):
+        mesh, pl = placements[path]
+        return DTensor.from_local(torch.empty(0, device=mesh.device_type),
+                                  mesh, pl, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    return tree
 
 
 class CheckpointManager:
@@ -191,7 +262,9 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree, aux: Optional[dict] = None):
         self.wait()  # back-pressure: one in flight
-        host = _to_host(tree)
+        host = _to_host(tree)   # every rank of a mesh joins the gathers
+        if not _writes():
+            return
 
         def work():
             try:

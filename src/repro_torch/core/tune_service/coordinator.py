@@ -16,9 +16,10 @@ every determinism property it pins — is reused unchanged.
 
 **Lease-and-commit.**  Each dispatched unit carries a lease: the worker
 must heartbeat it every ``heartbeat_s`` while the segment runs, and a
-lease that goes silent for ``lease_deadline`` heartbeat intervals (or
-whose worker provably died — process sentinel, socket EOF, or an idle
-heartbeat proving the result was lost in flight) **expires**.  An expired
+lease that goes silent for ``lease_deadline`` heartbeat intervals of the
+coordinator's listening (or whose worker provably died — process
+sentinel, socket EOF, or an idle heartbeat proving the result was lost in
+flight) **expires**.  An expired
 unit is **re-issued** to another worker, at most :data:`MAX_ATTEMPTS` times
 with a short backoff, before it is surrendered as an error result (which
 the service turns into a bounded trial ``retry``, then FAILED).
@@ -82,8 +83,8 @@ import numpy as np
 
 from .executor import _timed_safe
 from .faults import NO_FAULTS, FaultPlan
-from .transport import (FleetSpec, FrameChannel, FrameError, accept_greet,
-                        reject_reason)
+from .transport import (FleetSpec, FrameChannel, FrameError,
+                        FrameReplayError, accept_greet, reject_reason)
 from .worker import (DEFAULT_HEARTBEAT_S, LAUNCHES_KEY, process_main,
                      socket_main)
 
@@ -120,7 +121,15 @@ class _ProcessFleet:
     death promotes a spare instantly instead of paying a fresh boot
     (interpreter, torch, CUDA, kernels: seconds) on the critical path —
     the replacement spare boots in the background while both promoted
-    slots keep working."""
+    slots keep working.
+
+    Each worker writes to a queue of its own, which a thread of the
+    coordinator forwards into one inbox.  A shared queue's write lock is
+    held by whichever process is writing: a worker killed mid-write (a
+    heartbeat in flight) dies holding it, and every other worker's
+    messages stop for good -- their live leases expire for silence and
+    the fleet degrades.  A worker's own queue can only lose its own
+    messages."""
 
     def __init__(self, n: int, heartbeat_s: float, faults: FaultPlan,
                  device: str):
@@ -128,12 +137,15 @@ class _ProcessFleet:
         # never fork: a process that started CUDA or torch's threads
         # cannot be forked
         self._ctx = mp.get_context("spawn")
-        self._inbox = self._ctx.Queue()
+        self._inbox: "queue_mod.Queue" = queue_mod.Queue()
+        self._closing = False
         self._heartbeat_s = heartbeat_s
         self._faults = faults
         self._device = device
         self._procs: Dict[int, Any] = {}
         self._queues: Dict[int, Any] = {}
+        self._outboxes: Dict[int, Any] = {}
+        self._forwarders: List[threading.Thread] = []
         self._reaped: set = set()
         self._spares: List[int] = []
         self.n_promotions = 0
@@ -146,16 +158,35 @@ class _ProcessFleet:
     def _spawn(self) -> int:
         wid = self._next_wid
         self._next_wid += 1
-        q = self._ctx.Queue()
+        q, out = self._ctx.Queue(), self._ctx.Queue()
         p = self._ctx.Process(
             target=process_main,
-            args=(wid, q, self._inbox, self._heartbeat_s, self._faults,
+            args=(wid, q, out, self._heartbeat_s, self._faults,
                   self._device),
             daemon=True, name=f"repro-torch-fleet-w{wid}")
         p.start()
         self._procs[wid] = p
         self._queues[wid] = q
+        self._outboxes[wid] = out
+        t = threading.Thread(target=self._forward, args=(wid, out),
+                             daemon=True, name=f"repro-torch-fleet-fwd-w{wid}")
+        t.start()
+        self._forwarders.append(t)
         return wid
+
+    def _forward(self, wid: int, out) -> None:
+        """Move worker ``wid``'s messages into the inbox until the fleet
+        closes, or the worker is reaped and its queue is empty."""
+        while not self._closing:
+            try:
+                msg = out.get(timeout=0.25)
+            except queue_mod.Empty:
+                if wid in self._reaped:
+                    return
+                continue
+            except (EOFError, OSError):
+                return
+            self._inbox.put(msg)
 
     def spawn_worker(self) -> int:
         # promote a live hot spare if one is up: it is already booted
@@ -211,6 +242,7 @@ class _ProcessFleet:
         return dead
 
     def close(self) -> None:
+        self._closing = True
         for wid, p in self._procs.items():
             if p.is_alive():
                 try:
@@ -225,7 +257,10 @@ class _ProcessFleet:
                 p.join(timeout=0.5)
                 if p.is_alive():
                     p.kill()
-        for q in list(self._queues.values()) + [self._inbox]:
+        for t in self._forwarders:
+            t.join(timeout=0.5)
+        for q in list(self._queues.values()) + \
+                list(self._outboxes.values()):
             try:
                 q.cancel_join_thread()
                 q.close()
@@ -334,7 +369,21 @@ class _SocketFleet:
         self._inbox.put({"type": "hello", "worker": wid})
         try:
             while True:
-                msg = chan.recv()
+                try:
+                    msg = chan.recv()
+                except FrameReplayError as e:
+                    # an authentic frame out of sequence (a replayed
+                    # copy): it was read whole and the channel's counter
+                    # did not move, so the stream stays in step -- count
+                    # it and read on.  Dropping the connection here would
+                    # make the worker re-greet while a lease issued after
+                    # the original (in the window before this read) is
+                    # live: a journaled reconnect, or a reject charged to
+                    # the wrong unit, that depends on timing
+                    self._inbox.put({"type": "frame_reject", "worker": wid,
+                                     "reason": reject_reason(e),
+                                     "stale": True})
+                    continue
                 if msg is not None:
                     self._inbox.put(msg)
         except (EOFError, OSError):
@@ -501,6 +550,14 @@ class FleetExecutor:
         # *eligible* (they are on their way), so the coordinator does not
         # degrade to its local slot during a respawn.
         self._greeted: set = set()
+        # the silence clock: seconds the coordinator spent listening.  A
+        # lease is judged on the silence it kept while the coordinator
+        # was reading its inbox, never on time the coordinator itself
+        # was away (a long ask, a descheduled or frozen host): after such
+        # a gap the workers' heartbeats may not have been sent or read
+        # yet, and wall time would convict every live lease at once
+        self._listened = 0.0
+        self._ticked = time.monotonic()
         self._next_seq = 0
         self._next_commit = 0
         self.busy_s = 0.0
@@ -571,6 +628,7 @@ class FleetExecutor:
     # -- the pump: messages, liveness, leases, dispatch --------------------
     def _pump(self, block: bool) -> None:
         msg = self._fleet.poll(min(self.heartbeat_s, 0.05) if block else 0.0)
+        self._tick()
         while msg is not None:
             self._handle(msg)
             msg = self._fleet.poll(0.0)
@@ -584,16 +642,22 @@ class FleetExecutor:
         wid = msg.get("worker")
         if kind == "frame_reject":
             # the transport rejected a frame (bad signature, oversize,
-            # replayed, truncated, ...) and dropped the connection.  If
-            # the sender held a live lease, the lease cannot be trusted to
-            # complete — journal the reject into the unit's history (at
-            # commit time, like every lease event) and expire it.  A
-            # reject with no live lease (an unauthenticated stranger, or
-            # a replayed frame landing after its twin committed) touches
-            # stats only: journaling it would be wall-clock-dependent.
+            # truncated, ...) and dropped the connection.  If the sender
+            # held a live lease, the lease cannot be trusted to complete —
+            # journal the reject into the unit's history (at commit time,
+            # like every lease event) and expire it.  A reject with no
+            # live lease (an unauthenticated stranger) and a replayed
+            # frame (``stale``: the connection stays up, nothing is lost)
+            # touch stats only: journaling them would be
+            # wall-clock-dependent.
             self.n_rejected_frames += 1
-            if wid is None:
+            if wid is None or msg.get("stale"):
                 return
+            # the reader drops this connection after it queued the
+            # reject: no unit goes to the worker until it greets again,
+            # or a re-issue could be sent down the closing connection and
+            # the re-greet journal a timing-dependent reconnect
+            self._greeted.discard(wid)
             seq = self._busy.get(wid)
             lease = self._leases.get(seq) if seq is not None else None
             if lease is not None and lease["worker"] == wid:
@@ -618,7 +682,7 @@ class FleetExecutor:
             if seq is not None:
                 lease = self._leases.get(seq)
                 if lease is not None and lease["worker"] == wid:
-                    lease["last_seen"] = time.monotonic()
+                    self._heard(lease)
                     self.n_reconnects += 1
                     self._history[seq].append(
                         {"event": "reconnect", "unit": seq,
@@ -646,7 +710,7 @@ class FleetExecutor:
             lease = self._leases.get(unit)
             if lease is not None and lease["worker"] == wid and \
                     lease["attempt"] == msg.get("attempt"):
-                lease["last_seen"] = time.monotonic()
+                self._heard(lease)
             return
         if kind == "result":
             seq = int(msg["unit"])
@@ -720,11 +784,22 @@ class FleetExecutor:
                 self.n_respawns += 1
                 self._fleet.spawn_worker()
 
-    def _check_leases(self) -> None:
+    def _tick(self) -> None:
+        """Advance the silence clock by the time since the last tick, up
+        to one heartbeat: a longer gap is time the coordinator was not
+        listening."""
         now = time.monotonic()
+        self._listened += min(now - self._ticked, self.heartbeat_s)
+        self._ticked = now
+
+    def _heard(self, lease: Dict[str, Any]) -> None:
+        lease["last_seen"] = time.monotonic()
+        lease["heard"] = self._listened
+
+    def _check_leases(self) -> None:
         silence = self.heartbeat_s * self.lease_deadline
         for seq, lease in list(self._leases.items()):
-            if now - lease["last_seen"] > silence:
+            if self._listened - lease["heard"] > silence:
                 # wedged, not provably dead: write the worker off until it
                 # speaks again, but leave it marked busy (never re-booked)
                 self._suspect.add(lease["worker"])
@@ -790,7 +865,8 @@ class FleetExecutor:
                 self._greeted.discard(wid)
                 continue
             self._leases[seq] = {"worker": wid, "attempt": attempt,
-                                 "issued": now, "last_seen": now}
+                                 "issued": now, "last_seen": now,
+                                 "heard": self._listened}
             self._busy[wid] = seq
             if attempt == 0:
                 self._history[seq].append(

@@ -21,6 +21,15 @@ does.  Cross-attention (``attn_apply(cross_kv=...)``: the whisper decoder's
 and llama-3.2-vision's image layers) attends without a mask over K/V
 precomputed from the encoder or the projected patches, through ``_sdpa``,
 as the reference computes it outside any Pallas kernel.
+
+Each ``*_specs`` function gives a layer's sharding specs, the reference's
+``PartitionSpec``s as plain tuples of mesh-axis names (``distributed``),
+per layer (the reference stacks layers and prepends a ``None``).  On a
+mesh, :func:`moe_apply` dispatches over the data-parallel ranks' global
+slot order and runs this rank's experts (``shard``), and decode attention
+combines the parts of a cache split over ranks (``attn_apply(...,
+seq_split=)``); the other layers take their local weights from
+``models.sharded``.
 """
 
 from __future__ import annotations
@@ -52,6 +61,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     w = torch.rand((d_in, d_out), generator=gen, dtype=torch.float32,
                    device=device)
     return (w.mul_(2 * scale).sub_(scale)).to(dtype)
+
+
+#: a layer norm's and an rms norm's specs: replicated
+NORM_SPEC = (None,)
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -144,6 +157,13 @@ def attn_init(gen, cfg: AttnCfg, dtype=torch.bfloat16, device="cuda"):
     }
 
 
+def attn_specs():
+    """Q/K/V column-parallel over "model" (heads), the output
+    row-parallel; the model dimension over "data" (FSDP)."""
+    return {"wq": ("data", "model"), "wk": ("data", "model"),
+            "wv": ("data", "model"), "wo": ("model", "data")}
+
+
 def _sdpa(q, k, v, *, causal, window, cap, q_pos, k_pos, dtype):
     """q: (B,S,H,D), k/v: (B,T,KV,D) — grouped-query attention core,
     written out as the reference writes it (not a fused library call)."""
@@ -171,13 +191,18 @@ def _sdpa(q, k, v, *, causal, window, cap, q_pos, k_pos, dtype):
 def attn_apply(params: Params, cfg: AttnCfg, x, positions,
                kv_cache: Optional[KVCache] = None,
                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               use_flash: bool = True):
+               use_flash: bool = True, seq_split=None):
     """Returns (out, new_kv_cache).
 
     * prefill: ``kv_cache=None`` -> full self-attention over x, through the
       flash kernel for ``S >= 512`` and ``S * B <= 2**22``.
     * decode: ``kv_cache=(k_buf, v_buf, length)`` -> append, attend.  The
       buffers are written in place (the reference returns updated copies).
+      ``seq_split`` (distributed flash-decode): ``(T, offset, combine_max,
+      combine_sum)`` where the buffers hold slots ``offset ..`` of a cache
+      of ``T`` split over ranks: the new keys are written by the rank that
+      holds their slots, and each rank's max, exponent sums and weighted
+      values are combined by the two reductions.
     * cross-attention: ``cross_kv=(k, v)``, each (B, T, KV, D), precomputed
       from the encoder: q without RoPE, every key attended; no cache.
     """
@@ -214,11 +239,16 @@ def attn_apply(params: Params, cfg: AttnCfg, x, positions,
     # is permutation-invariant and keys carry their RoPE phase from write
     # time, so slot order does not matter.
     k_buf, v_buf, length = kv_cache
-    T = k_buf.shape[1]
+    tl = k_buf.shape[1]
+    T, off = (tl, 0) if seq_split is None else seq_split[:2]
     idx = min(length % T, T - S)  # the reference's dynamic_update_slice clamp
-    k_buf[:, idx:idx + S] = k.to(k_buf.dtype)
-    v_buf[:, idx:idx + S] = v.to(v_buf.dtype)
-    k_pos = torch.arange(T, device=x.device)
+    a, b = max(idx, off), min(idx + S, off + tl)   # the slots held here
+    if a < b:
+        k_buf[:, a - off:b - off] = k[:, a - idx:b - idx].to(k_buf.dtype)
+        v_buf[:, a - off:b - off] = v[:, a - idx:b - idx].to(v_buf.dtype)
+    k_pos = torch.arange(tl, device=x.device)
+    if off:
+        k_pos = k_pos + off
     valid = (k_pos <= length) | (length >= T)
     if cfg.window > 0 and T > cfg.window:
         valid = valid & (k_pos > length - cfg.window)
@@ -228,9 +258,18 @@ def attn_apply(params: Params, cfg: AttnCfg, x, positions,
     if cfg.logit_softcap > 0:
         logits = softcap(logits, cfg.logit_softcap)
     logits = torch.where(valid[None, None, None, None, :], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v_buf).reshape(B, S, H * D)
-    return out @ params["wo"], (k_buf, v_buf, length + S)
+    if seq_split is None:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v_buf)
+    else:
+        combine_max, combine_sum = seq_split[2:]
+        m = combine_max(logits.amax(-1, keepdim=True))
+        e = torch.exp(logits - m)
+        den = combine_sum(e.sum(-1, keepdim=True))
+        out = combine_sum(torch.einsum("bkgst,btkd->bskgd", e / den,
+                                       v_buf.to(torch.float32))).to(x.dtype)
+    return out.reshape(B, S, H * D) @ params["wo"], (k_buf, v_buf,
+                                                      length + S)
 
 
 def kv_cache_init(cfg: AttnCfg, batch: int, max_len: int,
@@ -238,6 +277,14 @@ def kv_cache_init(cfg: AttnCfg, batch: int, max_len: int,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def kv_cache_specs(decode_seq_shard: bool = True):
+    """KV buffers: batch over data, cached sequence over model (distributed
+    flash-decode: each rank's partial softmax terms are combined across
+    "model"); the length is a host int, replicated."""
+    seq = "model" if decode_seq_shard else None
+    return (("data", seq, None, None), ("data", seq, None, None), ())
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +300,13 @@ def mlp_init(gen, d_model, d_ff, kind: str = "swiglu", dtype=torch.bfloat16,
                 "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
     return {"w_up": dense_init(gen, d_model, d_ff, dtype, device),
             "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+
+
+def mlp_specs(kind: str = "swiglu"):
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": ("data", "model"), "w_up": ("data", "model"),
+                "w_down": ("model", "data")}
+    return {"w_up": ("data", "model"), "w_down": ("model", "data")}
 
 
 def mlp_apply(params: Params, x, kind: str = "swiglu"):
@@ -285,6 +339,27 @@ def moe_init(gen, d_model, d_ff, n_experts, dtype=torch.bfloat16,
             "w_gate": einit((n_experts, d_model, d_ff), d_model),
             "w_up": einit((n_experts, d_model, d_ff), d_model),
             "w_down": einit((n_experts, d_ff, d_model), d_ff)}
+
+
+def moe_specs():
+    """Experts over "model" (EP), their model dimension over "data"."""
+    return {"router": ("data", None), "w_gate": ("model", "data", None),
+            "w_up": ("model", "data", None),
+            "w_down": ("model", None, "data")}
+
+
+#: the reference's perf iteration #3: shard the (E, C, D) expert buffers'
+#: slots C over the data axes as well, so that the dispatch's sum over
+#: the data-parallel ranks is a reduce-scatter (each rank's experts then
+#: run its share of the slots) instead of a full all-reduce.  A spec such
+#: as ("model", "data", None); applied only where C % 8 == 0, as in the
+#: reference, and where the slots divide over the data axes.
+MOE_BUFFER_SPEC = None
+
+
+def set_moe_buffer_sharding(spec):
+    global MOE_BUFFER_SPEC
+    MOE_BUFFER_SPEC = None if spec is None else tuple(spec)
 
 
 def moe_capacity(tokens: int, top_k: int, n_experts: int,
@@ -355,8 +430,20 @@ def moe_combine(out_buf, rows, keep, gate_vals):
 
 
 def moe_apply(params: Params, x, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25):
-    """x: (B, S, D) -> ((B, S, D), the Switch load-balancing aux loss)."""
+              capacity_factor: float = 1.25, shard=None, sp: bool = False):
+    """x: (B, S, D) -> ((B, S, D), the Switch load-balancing aux loss).
+
+    ``shard`` (a ``distributed.ShardCtx`` with more than one rank): ``x``
+    is this rank's rows of the batch and ``params`` hold its experts
+    (``E / tp`` of them, or all where they do not divide over "model";
+    the router whole); the capacity, the drops and
+    the aux loss are the whole batch's, as one program computes them, and
+    the aux loss returned is this data-parallel rank's share of it.
+    ``sp``: ``x`` is this rank's slice of the sequence, and so is the
+    output."""
+    if shard is not None and (shard.dp > 1 or shard.tp > 1):
+        return _moe_sharded(params, x, n_experts, top_k, capacity_factor,
+                            shard, params["w_gate"].shape[0] < n_experts, sp)
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
@@ -372,6 +459,63 @@ def moe_apply(params: Params, x, n_experts: int, top_k: int,
     density = _counts(gate_idx[:, 0], n_experts).to(torch.float32) / T
     aux = n_experts * torch.sum(density * probs.mean(0))
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _split_slots(C: int, dp: int) -> bool:
+    spec = MOE_BUFFER_SPEC
+    return spec is not None and len(spec) > 1 and spec[1] is not None \
+        and "data" in ((spec[1],) if isinstance(spec[1], str) else spec[1]) \
+        and C % 8 == 0 and C % dp == 0 and dp > 1
+
+
+def _moe_sharded(params: Params, x, n_experts: int, top_k: int,
+                 capacity_factor: float, sh, ep: bool, sp: bool):
+    """The dispatch of the whole batch, computed where its slots live:
+    every rank learns the global slot order from the gathered gate
+    indices; it copies its own tokens' slots bound for its experts into a
+    partial (E / tp, C, D) buffer, which is summed over the data axes (or
+    reduce-scattered over C under :data:`MOE_BUFFER_SPEC`); its experts
+    run; each token's slots on this rank's experts are combined and the
+    parts summed over "model".  Without ``ep`` every rank runs every
+    expert (replicated over "model")."""
+    xr = sh.rep_in(x, sp)           # the router sees every token
+    B, S, D = xr.shape
+    T = B * S
+    probs, gate_vals, gate_idx = moe_route(params["router"],
+                                           xr.reshape(T, D), top_k)
+    k = top_k
+    tg = T * sh.dp
+    C = moe_capacity(tg, k, n_experts, capacity_factor)
+    rows_g, keep_g = moe_dispatch(sh.dp_gather(gate_idx), n_experts, C)
+    mine = slice(sh.dp_rank * T * k, (sh.dp_rank + 1) * T * k)
+    rows, keep = rows_g[mine], keep_g[mine]
+    el = n_experts // sh.tp if ep else n_experts
+    lo = sh.tp_rank * el * C if ep else 0
+    enter = sh.enter if ep else (lambda t: t)
+    local = keep & (rows >= lo) & (rows < lo + el * C)
+    rows_l = torch.where(local, rows - lo, el * C)
+    xe = (sh.enter(x, sp) if ep else xr).reshape(T, D)
+    part = xe.new_zeros((el * C + 1, D)).index_copy(
+        0, rows_l, xe.repeat_interleave(k, 0))[:-1].reshape(el, C, D)
+    split = _split_slots(C, sh.dp)
+    buf = sh.dp_scatter(part, 1) if split else sh.dp_sum(part)
+    out = moe_experts(params, buf)
+    if split:
+        out = sh.dp_gather_grad(out, 1)
+    slot_out = torch.where(local[:, None],
+                           out.reshape(el * C, D)[torch.where(local, rows_l,
+                                                              0)], 0)
+    # the gate values feed every rank's part of the combine: their
+    # gradient is summed over "model" like the tokens'
+    gv = enter(gate_vals)
+    weighted = slot_out * gv.reshape(-1, 1).to(slot_out.dtype)
+    y = weighted.reshape(T, k, D).sum(1).reshape(B, S, D).to(x.dtype)
+    y = sh.exit(y, sp) if ep else sh.rep_out(y, sp)
+    counts = sh.dp_sum_nograd(_counts(gate_idx[:, 0], n_experts))
+    density = counts.to(torch.float32) / tg
+    pmean = sh.dp_sum(probs.sum(0)) / tg
+    aux = n_experts * torch.sum(density * pmean) / sh.dp
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +540,13 @@ def rglru_init(gen, d_model, d_rnn, n_heads, conv_width=4,
                                    device=device),
         "w_out": dense_init(gen, d_rnn, d_model, dtype, device),
     }
+
+
+def rglru_specs():
+    return {"w_x": ("data", "model"), "w_y": ("data", "model"),
+            "conv_w": (None, "model"), "w_gate_a": ("data", "model"),
+            "w_gate_x": ("data", "model"), "lambda_p": ("model",),
+            "w_out": ("model", "data")}
 
 
 def _combine(a1, b1, a2, b2):
@@ -435,13 +586,15 @@ def associative_scan(a, b):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def _rglru_core(params: Params, u, h0=None):
+def _rglru_core(params: Params, u, h0=None, gather=None):
     """u: (B, S, R) after the conv.  Float32 gates of bf16 products, the
     recurrence in float32 from ``h0``; returns (h in u's dtype, float32
-    h of the last position)."""
+    h of the last position).  ``gather`` (tensor-parallel): ``u`` holds
+    this rank's channels, the gates' products need all of them."""
     B, S, R = u.shape
-    r = torch.sigmoid((u @ params["w_gate_a"]).to(torch.float32))
-    i = torch.sigmoid((u @ params["w_gate_x"]).to(torch.float32))
+    ug = u if gather is None else gather(u)
+    r = torch.sigmoid((ug @ params["w_gate_a"]).to(torch.float32))
+    i = torch.sigmoid((ug @ params["w_gate_x"]).to(torch.float32))
     log_a = -8.0 * r * F.softplus(params["lambda_p"])
     a = torch.exp(log_a)
     gated_x = u.to(torch.float32) * i * torch.sqrt(
@@ -453,7 +606,7 @@ def _rglru_core(params: Params, u, h0=None):
     return h.to(u.dtype), h[:, -1]
 
 
-def rglru_apply(params: Params, x, state=None):
+def rglru_apply(params: Params, x, state=None, gather=None):
     """x: (B, S, D).  ``state``: (conv tail (B, W-1, R), h (B, R) float32)
     for decode.  Returns (out, (new tail, h of the last position)).  The
     causal depthwise conv is the reference's left-to-right sum of W shifted
@@ -469,7 +622,7 @@ def rglru_apply(params: Params, x, state=None):
     upad = torch.cat([conv_tail, u], 1)
     S = u.shape[1]
     uc = sum(upad[:, i:i + S] * params["conv_w"][i] for i in range(W))
-    y, h_last = _rglru_core(params, uc, h0)
+    y, h_last = _rglru_core(params, uc, h0, gather)
     out = (y * gate_y) @ params["w_out"]
     new_tail = upad[:, -(W - 1):] if W > 1 else conv_tail
     return out, (new_tail, h_last)
@@ -500,6 +653,12 @@ def mlstm_init(gen, d_model, n_heads, dtype=torch.bfloat16, device="cuda"):
         "w_if": dense_init(gen, d_model, 2 * n_heads, torch.float32, device),
         "w_down": dense_init(gen, d_inner, d_model, dtype, device),
     }
+
+
+def mlstm_specs():
+    return {"w_up": ("data", "model"), "w_q": ("data", "model"),
+            "w_k": ("data", "model"), "w_v": ("data", "model"),
+            "w_if": ("data", None), "w_down": ("model", "data")}
 
 
 def mlstm_apply(params: Params, x, n_heads: int, state=None,
@@ -586,6 +745,11 @@ def slstm_init(gen, d_model, n_heads, dtype=torch.bfloat16, device="cuda"):
         "w_down": dense_init(gen, d_model, d_model, dtype, device),
         "norm": torch.zeros((d_model,), dtype=torch.float32, device=device),
     }
+
+
+def slstm_specs():
+    return {"w_in": ("data", "model"), "r_in": ("data", "model"),
+            "w_down": ("data", "model"), "norm": (None,)}
 
 
 def slstm_apply(params: Params, x, state=None):

@@ -33,6 +33,19 @@ API (functions over the model, as in the reference):
   decode_init(cfg, batch, max_len)      -> cache   (a list, one per layer)
   prime_cross_kv(params, cfg, cache, extra) -> cache (cross K/V filled)
   decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
+  shape_init(cfg)                       -> Model   (on ``meta``)
+  param_specs(cfg)                      -> {parameter name: spec}
+  cache_specs(cfg)                      -> one {leaf: spec} per layer
+
+Every layer is composed of ``models.sharded``'s parts, which run in the
+model's ``distributed.ShardCtx``: one rank for a model that is not
+distributed.  On a mesh (``distributed.distribute_model``: the parameters
+DTensors, the model's ``shard`` set) the same functions run sharded:
+``tokens`` and ``extra`` are then this rank's rows of the global batch,
+``loss_fn`` returns this data-parallel rank's share of the global mean
+(the shares sum to it), ``forward`` and ``decode_step`` every rank's
+logits of its rows over the whole vocabulary, and ``decode_init(...,
+mesh=)`` a cache of DTensors laid out by :func:`cache_specs`.
 
 ``aux`` is the sum over MoE layers of the Switch load-balancing loss (0.0
 without MoE).  A decode cache entry is ``{"kv": ...}`` for an attention
@@ -53,7 +66,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import distributed as D
 from . import layers as L
+from . import sharded as SH
 from .config import ModelConfig
 
 #: the recurrent block kinds
@@ -136,6 +151,9 @@ class Block(nn.Module):
     ``gate_x``; attention layers with ``d_ff > 0`` add norm2 and an MLP or
     a mixture of experts."""
 
+    #: the mesh's ``distributed.ShardCtx`` once the model is distributed
+    shard = None
+
     def __init__(self, kind: str, norm1,
                  attn: Optional[Mapping[str, torch.Tensor]] = None,
                  norm2=None, mlp: Optional[Mapping[str, torch.Tensor]] = None,
@@ -162,6 +180,8 @@ class Model(nn.Module):
     ``unembed`` only when the config does not tie embeddings; ``encoder``
     (attention and MLP blocks) and ``enc_norm_f`` for ``encdec``,
     ``vision_proj`` (``vision_dim x d_model``) for ``vlm``, else None."""
+
+    shard = None
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, norm_f,
                  blocks: Sequence[Block],
@@ -244,8 +264,11 @@ def init(key, cfg: ModelConfig, device="cuda") -> Model:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    gen = key if isinstance(key, torch.Generator) else \
-        torch.Generator(device=device).manual_seed(int(key))
+    if device.type == "meta":
+        gen = None      # shapes only
+    else:
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator(device=device).manual_seed(int(key))
     dt = cfg.tdtype
     embed = L.dense_init(gen, cfg.padded_vocab, cfg.d_model, dt, device)
     unembed = None if cfg.tie_embeddings else \
@@ -263,6 +286,94 @@ def init(key, cfg: ModelConfig, device="cuda") -> Model:
         extra["vision_proj"] = L.dense_init(gen, cfg.vision_dim, cfg.d_model,
                                             dt, device)
     return Model(cfg, embed, norm_f, blocks, unembed, **extra)
+
+
+def shape_init(cfg: ModelConfig) -> Model:
+    """The model on the ``meta`` device: shapes and dtypes, no storage."""
+    return init(0, cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# sharding specs: the reference's, per layer
+# ---------------------------------------------------------------------------
+
+def _norm_specs(cfg: ModelConfig, name: str, out: Dict[str, Any]) -> None:
+    if cfg.norm == "rms":
+        out[name] = L.NORM_SPEC
+    else:
+        out[f"{name}.w"] = out[f"{name}.b"] = L.NORM_SPEC
+
+
+def _layer_specs(cfg: ModelConfig, kind: str, cross: bool, prefix: str,
+                 out: Dict[str, Any]) -> None:
+    def put(sub, specs):
+        for k, v in specs.items():
+            out[f"{prefix}{sub}.{k}"] = v
+    _norm_specs(cfg, f"{prefix}norm1", out)
+    if kind.startswith("attn"):
+        put("attn", L.attn_specs())
+    elif kind == "rglru":
+        put("rnn", L.rglru_specs())
+    elif kind == "mlstm":
+        put("rnn", L.mlstm_specs())
+    else:
+        put("rnn", L.slstm_specs())
+    if cross:
+        _norm_specs(cfg, f"{prefix}norm_x", out)
+        put("cross", L.attn_specs())
+        out[f"{prefix}gate_x"] = ()
+    if cfg.d_ff > 0 and kind.startswith("attn"):
+        _norm_specs(cfg, f"{prefix}norm2", out)
+        if cfg.moe_experts:
+            put("moe", L.moe_specs())
+        else:
+            put("mlp", L.mlp_specs(cfg.act))
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Every parameter's spec, by its name in ``Model.named_parameters()``:
+    the reference's (``init``'s specs), whose layer-stacked leaves carry a
+    leading ``None`` that a per-layer leaf drops."""
+    check_supported(cfg)
+    out: Dict[str, Any] = {"embed": ("model", "data")}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ("data", "model")
+    _norm_specs(cfg, "norm_f", out)
+    cross = _cross_layers(cfg)
+    for i, kind in enumerate(cfg.pattern):
+        _layer_specs(cfg, kind, i in cross, f"blocks.{i}.", out)
+    if cfg.family == "encdec":
+        for i in range(cfg.enc_layers):
+            _layer_specs(_enc_cfg(cfg), "attn", False, f"encoder.{i}.", out)
+        _norm_specs(cfg, "enc_norm_f", out)
+    if cfg.family == "vlm":
+        out["vision_proj"] = (None, "data")
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """Each layer's decode-cache specs, as :func:`decode_init`'s entries
+    are laid out (the reference's ``decode_init`` specs, per layer)."""
+    check_supported(cfg)
+    cross = _cross_layers(cfg)
+    out = []
+    for i, kind in enumerate(cfg.pattern):
+        if kind.startswith("attn"):
+            e = {"kv": L.kv_cache_specs()}
+        elif kind == "rglru":
+            e = {"state": (("data", None, "model"), ("data", "model"))}
+        elif kind == "mlstm":
+            # matrix memory (B, H, hd, hv): H is small (4), so the first
+            # memory dim goes over "model" instead of the head dim
+            e = {"state": (("data", None, "model", None),
+                           ("data", None, "model"))}
+        else:
+            e = {"state": tuple([("data", "model")] * 4)}
+        if i in cross:
+            e["cross_kv"] = (("data", None, None, None),
+                             ("data", None, None, None))
+        out.append(e)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -332,67 +443,82 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig,
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _rnn_apply(p: Block, cfg: ModelConfig, h, state):
-    """The layer's recurrence from ``state`` (None: from zeros); returns
-    (out, new state)."""
-    if p.kind == "rglru":
-        return L.rglru_apply(p.rnn, h, state)
-    if p.kind == "mlstm":
-        return L.mlstm_apply(p.rnn, h, cfg.n_heads, state)
-    return L.slstm_apply(p.rnn, h, state)
-
-
-def _cross(p: Block, cfg: ModelConfig, x, positions, cross_kv):
+def _cross(p: Block, cfg: ModelConfig, x, positions, memory=None,
+           cross_kv=None, sp: bool = False):
     """The cross sub-layer: x + tanh(gate_x) * cross-attention of
-    norm_x(x) over ``cross_kv``."""
-    hx = _apply_norm(cfg, p.norm_x, x)
-    out, _ = L.attn_apply(p.cross, _attn_cfg(cfg, "attn"), hx, positions,
-                          cross_kv=cross_kv)
-    return x + torch.tanh(p.gate_x).to(x.dtype) * out
+    norm_x(x) over ``memory`` (prefill: its K/V made here, on a mesh the
+    heads split over "model" where they divide) or over the cache's
+    ``cross_kv`` (decode: replicated over "model")."""
+    sh = D.shard_ctx(p)
+    hx = _apply_norm(cfg, SH.norm(sh, p.norm_x, sp), x)
+    acfg = _attn_cfg(cfg, "attn")
+    gate = sh.weight(p.gate_x, None, "partial" if sp else "replicated")
+    if cross_kv is not None:
+        out, _ = L.attn_apply(sh.weights(p.cross), acfg, hx, positions,
+                              cross_kv=tuple(D.local(t) for t in cross_kv))
+    else:
+        lcfg, lw = SH.attn_weights(sh, p.cross, acfg)
+        if lcfg is None:
+            out, _ = L.attn_apply(lw, acfg, sh.rep_in(hx, sp), positions,
+                                  cross_kv=_make_cross_kv(cfg, lw, memory))
+            out = sh.rep_out(out, sp)
+        else:
+            out, _ = L.attn_apply(lw, lcfg, sh.enter(hx, sp), positions,
+                                  cross_kv=_make_cross_kv(
+                                      cfg, lw, sh.enter(memory)))
+            out = sh.exit(out, sp)
+    return x + torch.tanh(gate).to(x.dtype) * out
 
 
 def _layer(p: Block, cfg: ModelConfig, x, positions,
            entry: Optional[Dict[str, Any]] = None, use_flash: bool = True,
-           memory=None):
+           memory=None, sp: bool = False):
     """One layer; prefill without a cache entry (a cross layer attends
     over ``memory`` where there is one), decode with one (a cross layer
     over the entry's ``cross_kv``).  Returns (x, the layer's new entry or
-    None, its MoE aux loss or 0.0)."""
-    h = _apply_norm(cfg, p.norm1, x)
+    None, its MoE aux loss or 0.0; on a mesh this data-parallel rank's
+    share of it).  ``sp`` (on a mesh): ``x`` is this rank's slice of the
+    sequence (:func:`_constrain`)."""
+    sh = D.shard_ctx(p)
+    h = _apply_norm(cfg, SH.norm(sh, p.norm1, sp), x)
     if p.attn is not None:
-        out, kv = L.attn_apply(p.attn, _attn_cfg(cfg, p.kind), h, positions,
-                               kv_cache=None if entry is None else
-                               entry["kv"], use_flash=use_flash)
-        new = {"kv": kv}
+        acfg = _attn_cfg(cfg, p.kind)
+        if entry is None:
+            out = SH.self_attn(sh, p.attn, acfg, h, positions, use_flash, sp)
+            new = {"kv": None}
+        else:
+            out, kv = SH.decode_attn(sh, p.attn, acfg, h, positions,
+                                     entry["kv"])
+            new = {"kv": kv}
     else:
-        out, state = _rnn_apply(p, cfg, h,
-                                None if entry is None else entry["state"])
+        out, state = SH.rnn(sh, p, cfg, h,
+                            None if entry is None else entry["state"], sp)
         new = {"state": state}
     x = x + out
     if p.cross is not None:
         if entry is None and memory is not None:
-            x = _cross(p, cfg, x, positions, _make_cross_kv(cfg, p, memory))
+            x = _cross(p, cfg, x, positions, memory=memory, sp=sp)
         elif entry is not None and "cross_kv" in entry:
-            x = _cross(p, cfg, x, positions, entry["cross_kv"])
+            x = _cross(p, cfg, x, positions, cross_kv=entry["cross_kv"])
             new["cross_kv"] = entry["cross_kv"]
     aux = 0.0
     if p.norm2 is not None:
-        h2 = _apply_norm(cfg, p.norm2, x)
+        h2 = _apply_norm(cfg, SH.norm(sh, p.norm2, sp), x)
         if p.moe is not None:
-            out2, aux = L.moe_apply(p.moe, h2, cfg.moe_experts,
-                                    cfg.moe_top_k)
+            out2, aux = SH.moe(sh, p.moe, h2, cfg, sp)
         else:
-            out2 = L.mlp_apply(p.mlp, h2, cfg.act)
+            out2 = SH.mlp(sh, p.mlp, h2, cfg.act, sp)
         x = x + out2
     return x, None if entry is None else new, aux
 
 
-def _make_cross_kv(cfg: ModelConfig, p: Block, memory):
+def _make_cross_kv(cfg: ModelConfig, w, memory):
     """A cross layer's K and V, each (B, T, KV, hd), from ``memory``
-    (B, T, d_model)."""
+    (B, T, d_model) and its cross weights ``w`` (on a mesh, this rank's
+    heads)."""
     B, T, _ = memory.shape
-    k = (memory @ p.cross["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    v = (memory @ p.cross["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    k = (memory @ w["wk"]).reshape(B, T, -1, cfg.hd)
+    v = (memory @ w["wv"]).reshape(B, T, -1, cfg.hd)
     return k, v
 
 
@@ -400,6 +526,7 @@ def _encode(params: Model, cfg: ModelConfig, enc_input):
     """The whisper encoder over precomputed frame embeddings (the conv
     frontend is a stub): non-causal attention without RoPE, never through
     the flash kernel, and an MLP per layer, then ``enc_norm_f``."""
+    sh = D.shard_ctx(params)
     x = enc_input.to(cfg.tdtype)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
@@ -407,12 +534,11 @@ def _encode(params: Model, cfg: ModelConfig, enc_input):
                      n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                      causal=False, use_rope=False)
     for p in params.encoder:
-        h = _apply_norm(cfg, p.norm1, x)
-        out, _ = L.attn_apply(p.attn, acfg, h, positions, use_flash=False)
-        x = x + out
-        h2 = _apply_norm(cfg, p.norm2, x)
-        x = x + L.mlp_apply(p.mlp, h2, cfg.act)
-    return _apply_norm(cfg, params.enc_norm_f, x)
+        h = _apply_norm(cfg, SH.norm(sh, p.norm1), x)
+        x = x + SH.self_attn(sh, p.attn, acfg, h, positions, False)
+        h2 = _apply_norm(cfg, SH.norm(sh, p.norm2), x)
+        x = x + SH.mlp(sh, p.mlp, h2, cfg.act)
+    return _apply_norm(cfg, SH.norm(sh, params.enc_norm_f), x)
 
 
 def _memory(params: Model, cfg: ModelConfig, extra):
@@ -426,30 +552,88 @@ def _memory(params: Model, cfg: ModelConfig, extra):
                          f"frontend stub input, extra")
     if cfg.family == "encdec":
         return _encode(params, cfg, extra)
-    return extra.to(cfg.tdtype) @ params.vision_proj
+    return extra.to(cfg.tdtype) @ D.shard_ctx(params).weight(
+        params.vision_proj)
+
+
+def _vocab_part(sh, n: int):
+    """(first row, rows) of this rank's part of a vocabulary of ``n``
+    split over "model"."""
+    if n % sh.tp:
+        raise ValueError(f"a vocabulary of {n} does not divide over "
+                         f"{sh.tp} ranks")
+    return sh.tp_rank * (n // sh.tp), n // sh.tp
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens):
-    x = params.embed[tokens]
+    """The lookup; on a mesh vocab-parallel: each rank's rows of the
+    table, masked, summed over "model" (one rank adds the row, the others
+    zeros)."""
+    sh = D.shard_ctx(params)
+    tab = sh.weight(params.embed, 0)
+    if sh.tp == 1:
+        x = tab[tokens]
+    else:
+        lo, vl = _vocab_part(sh, params.embed.shape[0])
+        mine = (tokens >= lo) & (tokens < lo + vl)
+        x = tab[torch.clamp(tokens - lo, 0, vl - 1)] * \
+            mine[..., None].to(tab.dtype)
+        x = sh.exit(x)
     if cfg.norm == "rms":  # sqrt(d_model) rounded to the activation dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(cfg.tdtype)
 
 
-def logits_from_hidden(params: Model, cfg: ModelConfig, x):
-    """Unembed hidden states (tied or not); the final softcap in float32."""
-    w = params.unembed if params.unembed is not None else params.embed.T
-    logits = x @ w
+def _logits_local(params: Model, cfg: ModelConfig, x):
+    """Logits of this rank's vocabulary slice (all of it off a mesh); the
+    final softcap in float32."""
+    sh = D.shard_ctx(params)
+    if params.unembed is not None:
+        w = sh.weight(params.unembed, 1)
+    else:
+        w = sh.weight(params.embed, 0).T
+    logits = sh.enter(x) @ w
     if cfg.final_softcap > 0:
         logits = L.softcap(logits.to(torch.float32), cfg.final_softcap)
     return logits
 
 
+def logits_from_hidden(params: Model, cfg: ModelConfig, x):
+    """Unembed hidden states (tied or not); the final softcap in float32.
+    On a mesh every rank gets its rows' logits over the whole
+    vocabulary."""
+    return D.shard_ctx(params).tp_gather(_logits_local(params, cfg, x), -1,
+                                         partial=False)
+
+
 def _layer_out(p: Block, cfg: ModelConfig, x, positions, use_flash: bool,
-               memory):
+               memory, sp: bool = False):
     x, _, aux = _layer(p, cfg, x, positions, use_flash=use_flash,
-                       memory=memory)
+                       memory=memory, sp=sp)
     return x, aux
+
+
+#: sequence parallelism (the reference's perf iteration #1): a spec such
+#: as ("data", "model", None) splits the residual stream between the
+#: sub-layers over "model" along the sequence, so that each
+#: tensor-parallel part gathers it on entry and reduce-scatters its output
+#: (half the bytes of the all-reduce) and activations are stored split.
+#: Set with :func:`set_activation_sharding`; it applies on a mesh whose
+#: "model" axis divides the sequence.
+ACTIVATION_SPEC: Optional[tuple] = None
+
+def set_activation_sharding(spec: Optional[tuple]):
+    global ACTIVATION_SPEC
+    ACTIVATION_SPEC = None if spec is None else tuple(spec)
+
+
+def _constrain(params: Model, x):
+    """(x, sp): the residual stream as :data:`ACTIVATION_SPEC` lays it out
+    -- this rank's slice of the sequence (``sp`` True) where it splits the
+    sequence over the mesh's "model" axis, else ``x`` as it is."""
+    if not D.shard_ctx(params).sp_ok(x):
+        return x, False
+    return params.shard.rep_out(x, True), True
 
 
 def hidden_forward(params: Model, cfg: ModelConfig, tokens, extra=None,
@@ -464,15 +648,20 @@ def hidden_forward(params: Model, cfg: ModelConfig, tokens, extra=None,
     positions = torch.arange(S, device=x.device).expand(B, S)
     memory = _memory(params, cfg, extra)
     remat = cfg.remat and torch.is_grad_enabled()
+    x, sp = _constrain(params, x)
     aux = 0.0
     for blk in params.blocks:
         if remat:
             x, a = checkpoint(_layer_out, blk, cfg, x, positions, use_flash,
-                              memory, use_reentrant=False)
+                              memory, sp, use_reentrant=False)
         else:
-            x, a = _layer_out(blk, cfg, x, positions, use_flash, memory)
+            x, a = _layer_out(blk, cfg, x, positions, use_flash, memory, sp)
         aux = aux + a
-    return _apply_norm(cfg, params.norm_f, x), aux
+    x = _apply_norm(cfg, SH.norm(D.shard_ctx(params), params.norm_f, sp),
+                    x)
+    if sp:    # the whole sequence again for the unembedding
+        x = params.shard.rep_in(x, True)
+    return x, aux
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, extra=None,
@@ -484,11 +673,24 @@ def forward(params: Model, cfg: ModelConfig, tokens, extra=None,
 def _chunk_loss(params: Model, cfg: ModelConfig, x, labels):
     """Summed negative log-likelihood of the labelled positions of one
     chunk, and their count.  The label logit is gathered (the reference
-    contracts with a one-hot: the same number, exactly)."""
-    logits = logits_from_hidden(params, cfg, x).to(torch.float32)
+    contracts with a one-hot: the same number, exactly); on a mesh the
+    vocabulary is split over "model": a vocab-parallel label logit and
+    log-sum-exp."""
+    sh = D.shard_ctx(params)
+    lg = _logits_local(params, cfg, x).to(torch.float32)
     lbl = torch.clamp(labels, min=0)
-    label_logit = torch.gather(logits, -1, lbl[..., None])[..., 0]
-    ll = label_logit - torch.logsumexp(logits, dim=-1)
+    if sh.tp == 1:
+        label_logit = torch.gather(lg, -1, lbl[..., None])[..., 0]
+        ll = label_logit - torch.logsumexp(lg, dim=-1)
+    else:
+        lo, vl = _vocab_part(sh, params.embed.shape[0])
+        mine = (lbl >= lo) & (lbl < lo + vl)
+        part = torch.gather(lg, -1, torch.clamp(lbl - lo, 0, vl - 1)[
+            ..., None])[..., 0]
+        label_logit = sh.exit(torch.where(mine, part, 0.0))
+        m = sh.tp_max(lg.amax(-1, keepdim=True))
+        se = sh.exit(torch.exp(lg - m).sum(-1))
+        ll = label_logit - (m[..., 0] + torch.log(se))
     mask = (labels >= 0).to(torch.float32)
     return -(ll * mask).sum(), mask.sum()
 
@@ -513,6 +715,8 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: Mapping[str, Any],
             tot, cnt = tot + t, cnt + n
     else:
         tot, cnt = _chunk_loss(params, cfg, x, labels)
+    # on a mesh this rank's share of the global mean
+    cnt = D.shard_ctx(params).dp_sum_nograd(cnt)
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + 0.01 * aux
 
@@ -546,17 +750,44 @@ def _entry_init(cfg: ModelConfig, kind: str, has_cross: bool, batch: int,
 
 
 def decode_init(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> List[Dict[str, Any]]:
+                device="cuda", mesh=None) -> List[Dict[str, Any]]:
     """One entry per layer: ``{"kv": (k_buf, v_buf, length)}`` for
     attention (sliding-window layers keep a ring of ``min(max_len,
     window)`` slots), ``{"state": ...}`` for a recurrence (RG-LRU: the conv
     tail and h; mLSTM: C and n; sLSTM: h, c, n and m); a cross layer's
     entry adds ``"cross_kv"``, zeros of (batch, enc_ctx or n_patches, KV,
-    hd) until :func:`prime_cross_kv` fills them."""
+    hd) until :func:`prime_cross_kv` fills them.
+
+    With ``mesh``, ``batch`` is the global batch and every tensor is a
+    DTensor laid out by :func:`cache_specs` (this rank allocates only its
+    shard); a batch that does not divide over the data axes is
+    replicated over them (the reference's dry-run keeps "model"'s
+    sequence split there), and so is a KV cache's sequence (its ring's
+    slots) that does not divide over "model"."""
     check_supported(cfg)
     cross = _cross_layers(cfg)
-    return [_entry_init(cfg, kind, i in cross, batch, max_len, device)
-            for i, kind in enumerate(cfg.pattern)]
+    if mesh is None:
+        return [_entry_init(cfg, kind, i in cross, batch, max_len, device)
+                for i, kind in enumerate(cfg.pattern)]
+    split_batch = batch % D.dp_size(mesh) == 0
+    out = []
+    for i, kind in enumerate(cfg.pattern):
+        like = _entry_init(cfg, kind, i in cross, batch, max_len, "meta")
+        spec = cache_specs(cfg)[i]
+        if "kv" in like and like["kv"][0].shape[1] % D.tp_size(mesh):
+            spec = dict(spec, kv=tuple(
+                tuple(None if a == "model" else a for a in sp)
+                for sp in spec["kv"]))
+        entry = {}
+        for k, v in like.items():
+            entry[k] = tuple(
+                t if not isinstance(t, torch.Tensor) else D.zeros_like_spec(
+                    t, D.cache_spec(sp, mesh, split_batch), mesh, device)
+                for t, sp in zip(v, spec[k]))
+        if kind == "slstm":   # n starts at ones
+            entry["state"][2].to_local().fill_(1.0)
+        out.append(entry)
+    return out
 
 
 def prime_cross_kv(params: Model, cfg: ModelConfig, cache, extra):
@@ -569,7 +800,11 @@ def prime_cross_kv(params: Model, cfg: ModelConfig, cache, extra):
     cache = list(cache)
     for i in sorted(_cross_layers(cfg)):
         cache[i] = dict(cache[i])
-        cache[i]["cross_kv"] = _make_cross_kv(cfg, params.blocks[i], memory)
+        blk = params.blocks[i]
+        kv = _make_cross_kv(cfg, D.shard_ctx(blk).weights(blk.cross),
+                            memory)
+        cache[i]["cross_kv"] = tuple(
+            SH.like(t, old) for t, old in zip(kv, cache[i]["cross_kv"]))
     return cache
 
 
@@ -588,5 +823,5 @@ def decode_step(params: Model, cfg: ModelConfig, tokens, position, cache):
     for blk, entry in zip(params.blocks, cache):
         x, entry, _ = _layer(blk, cfg, x, positions, entry)
         new_cache.append(entry)
-    x = _apply_norm(cfg, params.norm_f, x)
+    x = _apply_norm(cfg, SH.norm(D.shard_ctx(params), params.norm_f), x)
     return logits_from_hidden(params, cfg, x), new_cache

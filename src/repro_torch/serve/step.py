@@ -6,7 +6,11 @@
   decode cache, as in the reference.
 * serve_step: one decode step against the KV cache (inline attention).
 
-Both run under ``torch.inference_mode()``.
+Both run under ``torch.inference_mode()``.  On a distributed model
+(``distributed.distribute_model``) they are the sharded steps the
+dry-run traces: each rank passes its rows of the batch (and of a cache
+from ``transformer.decode_init(..., mesh=)``, the KV sequence split over
+"model") and gets their logits over the whole vocabulary.
 """
 
 from __future__ import annotations

@@ -6,6 +6,12 @@ step is a pure function of ``(state, batch)`` under ``jit``; here it runs
 eagerly, takes the gradient with autograd and updates the parameters and
 the optimizer's moments in place (``optim``), returning the same state
 objects with the step advanced.
+
+On a mesh (``make_state(..., mesh=)``) the parameters and the optimizer
+state are DTensors laid out by :func:`state_specs`; the step takes this
+rank's rows of the batch, its gradients are DTensors summed over the data
+axes by the backward pass, the clipping norm is the mesh's, and the update
+runs on each rank's shards.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import clip_by_global_norm
@@ -39,12 +46,25 @@ def auto_microbatches(cfg: ModelConfig, global_batch: int, seq: int,
     return max(1, n)
 
 
-def make_state(key, cfg: ModelConfig, optimizer, device="cuda") -> TrainState:
+def make_state(key, cfg: ModelConfig, optimizer, device="cuda",
+               mesh=None) -> TrainState:
     """Random weights (``T.init``) with gradients on, and the optimizer's
-    initial state, on ``device``."""
-    params = T.init(key, cfg, device=device).requires_grad_(True)
+    initial state, on ``device``; with ``mesh``, every rank makes the same
+    weights and keeps its shards (``distributed.distribute_model`` by
+    :func:`repro_torch.models.transformer.param_specs`)."""
+    params = T.init(key, cfg, device=device)
+    if mesh is not None:
+        D.distribute_model(params, T.param_specs(cfg), mesh)
+    params.requires_grad_(True)
     return TrainState(params, optimizer.init(dict(params.named_parameters())),
                       0)
+
+
+def state_specs(cfg: ModelConfig, optimizer, param_specs=None):
+    """The train state's specs: the parameters', the optimizer's and the
+    step's (replicated)."""
+    param_specs = param_specs or T.param_specs(cfg)
+    return TrainState(param_specs, optimizer.state_specs(param_specs), ())
 
 
 def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -56,6 +76,10 @@ def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
         out[k] = (t.to(torch.int64) if k in ("tokens", "labels") else t
                   ).to(device)
     return out
+
+
+def _local(t):
+    return t.to_local() if D.is_dtensor(t) else t
 
 
 def build_train_step(cfg: ModelConfig, optimizer, n_micro: int = 1,
@@ -74,6 +98,7 @@ def build_train_step(cfg: ModelConfig, optimizer, n_micro: int = 1,
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model = state.params
+        sh = D.ctx_of(model)
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -85,8 +110,9 @@ def build_train_step(cfg: ModelConfig, optimizer, n_micro: int = 1,
             loss = loss.detach()
         else:
             mb = B // n_micro
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            # float32 sums of this rank's shards
+            grads = {k: torch.zeros(_local(p).shape, dtype=torch.float32,
+                                    device=_local(p).device)
                      for k, p in params.items()}
             loss = 0.0
             for i in range(n_micro):
@@ -95,17 +121,19 @@ def build_train_step(cfg: ModelConfig, optimizer, n_micro: int = 1,
                 micro.backward()
                 with torch.no_grad():
                     for k, p in params.items():
-                        grads[k].add_(p.grad.to(torch.float32))
+                        grads[k].add_(_local(p.grad).to(torch.float32))
                         p.grad = None
                 loss = loss + micro.detach()
             for g in grads.values():
                 g.div_(n_micro)
             loss = loss / n_micro
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, params)
         _, opt_state = optimizer.update(grads, state.opt_state, params)
         for p in params.values():
             p.grad = None
         del grads
+        if sh is not None:   # the data-parallel ranks' shares summed
+            loss = sh.dp_sum_nograd(loss)
         metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm,
                    "step": state.step + 1}
         return TrainState(model, opt_state, state.step + 1), metrics

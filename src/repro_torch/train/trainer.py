@@ -1,7 +1,12 @@
-"""Fault-tolerant Trainer on one device.
+"""Fault-tolerant Trainer on a mesh or one device.
 
-A port of the reference package's ``repro.train.trainer``; a device stands
-where the reference takes a mesh (a world of one card).
+A port of the reference package's ``repro.train.trainer``:
+``Trainer(cfg, mesh, workdir, ...)`` trains on a ``DeviceMesh`` (the
+parameters and the optimizer state sharded by their specs, each
+data-parallel rank running its rows of every batch, ``auto_microbatches``
+keeping a microbatch divisible over them), and ``Trainer(cfg, workdir,
+device=...)`` -- or a ``torch.device`` where the mesh goes -- on one device,
+unsharded (a world of one).
 
   * checkpoint/restart -- async checkpoints every ``ckpt_every`` steps; on
     construction the trainer resumes from the latest checkpoint
@@ -12,9 +17,10 @@ where the reference takes a mesh (a world of one card).
     ``torch.cuda.synchronize`` on a card, feed an EWMA z-score; steps
     slower than ``straggler_z`` sigma are recorded (the first 3 steps,
     which carry the warm-up, are left out);
-  * elastic restore -- ``restore_elastic(device)`` reloads the same
-    checkpoint onto another device (the data pipeline is step-indexed, so
-    the batch stream is unchanged).
+  * elastic restore -- ``restore_elastic(new_mesh)`` reloads the same
+    checkpoint onto another mesh or a plain device (the checkpoint holds
+    full arrays, and the data pipeline is step-indexed, so the batch
+    stream is unchanged).
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.ckpt import (CheckpointManager, latest_step,
+from repro_torch import distributed as D
+from repro_torch.ckpt import (CheckpointManager, barrier, latest_step,
                               load_checkpoint, save_checkpoint)
 from repro_torch.data import DataState, SyntheticLM
 from repro_torch.models.config import ModelConfig
@@ -42,16 +50,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _place(where):
+    """(mesh or None, the device this rank computes on)."""
+    if isinstance(where, DeviceMesh):
+        if where.device_type == "cuda":
+            return where, torch.device("cuda", torch.cuda.current_device())
+        return where, torch.device(where.device_type)
+    return None, torch.device(where)
+
+
 class Trainer:
-    def __init__(self, cfg: ModelConfig, workdir: str, device="cuda",
-                 global_batch: int = 8, seq_len: int = 128,
+    def __init__(self, cfg: ModelConfig, mesh, workdir: Optional[str] = None,
+                 *, device=None, global_batch: int = 8, seq_len: int = 128,
                  lr: float = 3e-4, total_steps: int = 1000,
                  ckpt_every: int = 50, seed: int = 0,
                  optimizer: str = "adamw", straggler_z: float = 3.0,
                  use_flash: bool = False):
+        if workdir is None:   # Trainer(cfg, workdir, device=...)
+            mesh, workdir = (device if device is not None else "cuda"), mesh
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh, self.device = _place(mesh)
         self.workdir = workdir
+        self.seed = seed
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.total_steps = total_steps
@@ -67,7 +87,8 @@ class Trainer:
         self.train_step = self._build_step()
         self.data = SyntheticLM(cfg.vocab, seq_len, global_batch, seed=seed,
                                 extra_shape=extra_shape(cfg, global_batch))
-        self.state = make_state(seed, cfg, self.optimizer, self.device)
+        self.state = make_state(seed, cfg, self.optimizer, self.device,
+                                self.mesh)
         self.data_state = DataState(seed=seed, step=0)
         self.ckpt = CheckpointManager(workdir)
         self.metrics_log: list = []
@@ -82,8 +103,9 @@ class Trainer:
             self._prev_sigterm = signal.SIG_DFL if prev is None else prev
 
     def _build_step(self):
+        dp = D.dp_size(self.mesh) if self.mesh is not None else 1
         n_micro = auto_microbatches(self.cfg, self.global_batch,
-                                    self.seq_len)
+                                    self.seq_len, dp)
         return build_train_step(self.cfg, self.optimizer, n_micro=n_micro,
                                 use_flash=self.use_flash)
 
@@ -104,18 +126,28 @@ class Trainer:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
             self._prev_sigterm = None
 
-    def restore(self, device=None):
-        """Load the latest checkpoint onto ``device`` (default: the
-        trainer's)."""
+    def restore(self, mesh=None):
+        """Load the latest checkpoint into the trainer's state, laid out
+        on its mesh or device (on ``mesh`` instead: an elastic restore)."""
+        if mesh is not None and mesh is not self.mesh:
+            return self.restore_elastic(mesh)
+        self.ckpt.wait()
+        barrier()   # rank 0's write is done on every rank
         self.state, aux = load_checkpoint(self.workdir, self.state,
-                                          device=device or self.device)
+                                          device=self.device)
         self.data_state = DataState.from_dict(aux["data"])
 
-    def restore_elastic(self, device):
-        """Resume the run from its latest checkpoint on another device."""
-        self.device = torch.device(device)
+    def restore_elastic(self, new_mesh):
+        """Elastic re-mesh: resume the run from its latest checkpoint on
+        another mesh, or a plain device (a ``torch.device`` or its
+        name)."""
+        self.ckpt.wait()
+        self.mesh, self.device = _place(new_mesh)
         self.train_step = self._build_step()
-        self.restore(self.device)
+        self.state = None   # free the old layout before the new one
+        self.state = make_state(self.seed, self.cfg, self.optimizer,
+                                self.device, self.mesh)
+        self.restore()
 
     # -- main loop ---------------------------------------------------------------
     def run(self, n_steps: Optional[int] = None,
@@ -129,6 +161,10 @@ class Trainer:
             if self._stop:
                 break
             batch = to_device(self.data.batch_at(step), self.device)
+            if self.mesh is not None:   # this rank's rows
+                rows = D.ctx_of(self.state.params).batch_rows(
+                    self.global_batch)
+                batch = {k: v[rows] for k, v in batch.items()}
             _sync(self.device)
             t0 = time.perf_counter()
             self.state, metrics = self.train_step(self.state, batch)

@@ -11,6 +11,10 @@ pages, 60 epochs) with ``device="cpu"``:
 * the fault matrix (kill, stall, drop, dup, delay) gives byte-identical
   journal twins with the reference's expire reasons (none for dup), and a
   death promotes the hot spare;
+* a coordinator that was itself away (stalled between reading its inbox
+  and judging its leases, or between two reads) expires no lease of a
+  worker that kept heartbeating, and a worker killed while it writes to
+  the coordinator silences no other worker;
 * the argument checks of the reference.
 
 The network faults, hangs, surrender and degradation are in
@@ -20,6 +24,8 @@ reference's fleet, the kernel-launch receipt and the launcher in
 ``--dist loadfile`` spreads them).  Each fleet stops its workers when the
 study ends, also on error; every wait has a deadline.
 """
+
+import time
 
 import pytest
 
@@ -129,6 +135,85 @@ def test_fleet_journal_twins_under_fault(injector, baseline, tmp_path):
         assert fs["n_worker_deaths"] == 1 and fs["n_respawns"] == 1
         assert fs["n_spare_promotions"] == 1
     schema_ok(paths[0])
+
+
+# ---------------------------------------------------------------------------
+# silence is judged on the coordinator's listening, not its wall clock
+# ---------------------------------------------------------------------------
+def slow_unit(s):
+    """A unit that runs ``s`` seconds while its worker heartbeats
+    (module-level so a spawned worker imports it)."""
+    time.sleep(s)
+    return {"value": float(s)}
+
+
+@pytest.mark.parametrize("where", ["_check_workers", "_pump"])
+def test_coordinator_stall_expires_no_live_lease(where, monkeypatch):
+    """The coordinator away for three times a lease's silence while its
+    one worker heartbeats a 3 s unit: inside a pump (between reading the
+    inbox and judging the leases, where a respawn or a descheduled host
+    stalls it) or between two pumps.  No lease expires, no unit runs
+    twice; judged on the wall clock, the first case expired the lease."""
+    heartbeat_s, deadline = 0.05, 10
+    stall_s = 3 * heartbeat_s * deadline
+    ex = FleetExecutor(workers=1, pool="process", heartbeat_s=heartbeat_s,
+                       lease_deadline=deadline, device="cpu")
+    own = getattr(FleetExecutor, where)
+    stalled = []
+
+    def stalling(self, *args, **kw):
+        if self._leases and not stalled:
+            time.sleep(1.0)  # the lease has been heard from a while
+            stalled.append(time.monotonic())
+            time.sleep(stall_s)
+        return own(self, *args, **kw)
+    monkeypatch.setattr(FleetExecutor, where, stalling)
+    try:
+        ex.submit(slow_unit, 3.0)
+        _, r = ex.pop_next()
+        assert r["value"] == 3.0
+        assert stalled
+        st = ex.stats()
+        assert st["n_expired_leases"] == 0 and st["n_reissues"] == 0
+        assert st["n_duplicate_results"] == 0
+    finally:
+        ex.close()
+
+
+def die_holding_its_outbox(marker):
+    """First call: die as a worker killed mid-write dies, holding the
+    write lock of the queue its worker sends on; later calls: 1.0
+    (module-level so a spawned worker imports it)."""
+    import gc
+    import multiprocessing.queues as mq
+    import os
+    if os.path.exists(marker):
+        return {"value": 1.0}
+    open(marker, "w").close()
+    for q in [o for o in gc.get_objects() if isinstance(o, mq.Queue)]:
+        if q._thread is not None:  # a queue this process has written to
+            q._wlock.acquire()
+    os._exit(9)
+
+
+def test_worker_killed_mid_write_silences_no_other(tmp_path):
+    """Two workers: one runs a 4 s unit, the other dies holding its
+    outbox's write lock.  The death expires its own lease only: the other
+    worker's heartbeats and result still arrive, the promoted spare runs
+    the re-issue, and the fleet does not degrade."""
+    ex = FleetExecutor(workers=2, pool="process", heartbeat_s=0.05,
+                       lease_deadline=40, device="cpu")
+    try:
+        ex.submit(slow_unit, 4.0)
+        ex.submit(die_holding_its_outbox, str(tmp_path / "died"))
+        got = [ex.pop_next()[1] for _ in range(2)]
+        assert [r["value"] for r in got] == [4.0, 1.0]
+        st = ex.stats()
+        assert st["n_worker_deaths"] == 1
+        assert st["n_expired_leases"] == 1
+        assert not st["degraded"]
+    finally:
+        ex.close()
 
 
 # ---------------------------------------------------------------------------
