@@ -342,7 +342,24 @@ is taken again (the counts are printed at the end).
     then take seconds): 4 steps on the mesh, a checkpoint,
     ``restore_elastic`` onto the plain device for a step, a checkpoint,
     back onto the mesh for a step, every loss bitwise the unsharded run's;
-32. one JSON line per the kernel table, the card line again, and as the
+32. the host-side tuning surface (``phase_numpy_backend``; no kernel of
+    its own): (a) static and oracle at GUPS 1.0, B = 8, on
+    ``backend="numpy"`` and on the card's compiled loop, migrations
+    bitwise and walls within 1e-4; (b) hemem's default config on btree at
+    scale 0.25, numpy against the card within 5% (hmsdk and memtis
+    printed beside it); (c) hemem at GUPS 1.0, B = 8, on numpy with
+    ``workers=4`` (a pool of spawned processes, first and second call)
+    bitwise ``workers=1``, both wall times printed; (d) the eight Fig. 2
+    workloads' default and one fixed config on numpy (``total_s``, host
+    seconds) beside the card loop's ``total_s``; (e) hemem at GUPS 1.0,
+    B = 8, with ``exact_select=False`` on the card: the launch counters
+    set to 0 before and read after show 0 ``select_topk`` launches (60
+    for the exact run beside it), ``total_s`` against the exact run's;
+    (f) ``Study.tune(surrogate="reference", acquisition="legacy")`` at
+    budget 30 on the card, the reference grower's forest on its history
+    bitwise the fast grower's, and the deprecated ``evaluate()`` bitwise
+    ``Study(numpy spec).run().total_s``;
+33. one JSON line per the kernel table, the card line again, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -4085,6 +4102,195 @@ def phase_mesh(procs, t_dry):
         stop_procs(procs)
 
 
+# ---------------------------------------------------------------------------
+# the host-side tuning surface: the numpy backend, sharding, the quantized
+# ablation and the legacy BO pieces (phase 32)
+# ---------------------------------------------------------------------------
+#: Fig. 2's fixed second config, drawn once from the knob space
+FIG2_CONFIG_SEED = 11
+
+
+def surface_spec(engine, workload="gups", input_name="8GiB-hot",
+                 scale=SCALE, **opts):
+    """A spec on the given backend options (no CRN: the numpy loop has
+    none, and the card runs are held against it)."""
+    from repro_torch.core import ExperimentSpec, SimOptions, WorkloadSpec
+    return ExperimentSpec(
+        engine=engine, workload=WorkloadSpec(workload, input_name,
+                                             scale=scale),
+        machine="pmem-large", options=SimOptions(seed=0, **opts))
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def max_rel(a, b) -> float:
+    import numpy as np
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-9)))
+
+
+def phase_numpy_backend():
+    import warnings
+    import numpy as np
+    from repro_torch.core import Study
+    from repro_torch.core import simulator
+    from repro_torch.core.bo.rf import RandomForest
+    from repro_torch.core.knobs import HEMEM_SPACE, get_space
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    res = {"card": card_line()}
+
+    # (a) the deterministic engines at the paper's size, numpy vs card
+    res["deterministic"] = {}
+    for engine in ("static", "oracle"):
+        cfgs = batch_configs(engine)
+        num, num_s = timed(lambda: Study(surface_spec(
+            engine, backend="numpy")).run(configs=cfgs))
+        card, card_s = timed(lambda: Study(surface_spec(
+            engine, device="cuda")).run(configs=cfgs))
+        rel = max(max_rel(a.epoch_wall_ms, b.epoch_wall_ms)
+                  for a, b in zip(num, card))
+        if not all(np.array_equal(a.cum_migrations, b.cum_migrations)
+                   for a, b in zip(num, card)):
+            fail(f"{engine}: numpy and card migrations differ")
+        if not rel < 1e-4:
+            fail(f"{engine}: numpy and card walls differ by {rel:.3g}")
+        res["deterministic"][engine] = {
+            "numpy_total_s": num[0].total_s, "card_total_s": card[0].total_s,
+            "max_rel_wall": rel,
+            "migrations": int(num[0].cum_migrations[-1]),
+            "numpy_host_s": num_s, "card_s": card_s}
+
+    # (b) the sampled engines at scale 0.25: statistical agreement
+    wl = make_workload("btree", "", threads=8, scale=0.25, seed=3)
+    res["btree_0.25"] = {}
+    for engine in ("hemem", "hmsdk", "memtis"):
+        cfg = get_space(engine).default_config()
+        (a,), num_s = timed(lambda: simulator.run_simulation_batch(
+            wl, engine, [cfg], seeds=1, backend="numpy"))
+        (b,), card_s = timed(lambda: simulator.run_simulation_batch(
+            wl, engine, [cfg], seeds=1, device="cuda"))
+        rel = abs(a.total_s - b.total_s) / a.total_s
+        res["btree_0.25"][engine] = {
+            "numpy_total_s": a.total_s, "card_total_s": b.total_s,
+            "rel": rel, "numpy_host_s": num_s, "card_s": card_s}
+        if engine == "hemem" and not rel < 0.05:
+            fail(f"btree 0.25 hemem: numpy {a.total_s} and card "
+                 f"{b.total_s} differ by {rel:.3g} (bar 5%)")
+
+    # (c) sharding over spawned processes never changes a bit
+    cfgs = batch_configs("hemem")
+    spec1 = surface_spec("hemem", backend="numpy", workers=1)
+    spec4 = surface_spec("hemem", backend="numpy", workers=4)
+    one, one_s = timed(lambda: Study(spec1).run(configs=cfgs))
+    try:
+        four, four_s = timed(lambda: Study(spec4).run(configs=cfgs))
+        four2, four2_s = timed(lambda: Study(spec4).run(configs=cfgs))
+    finally:
+        simulator.shutdown_pool()
+    for name, other in (("first", four), ("second", four2)):
+        if not all(np.array_equal(a.epoch_wall_ms, b.epoch_wall_ms)
+                   and np.array_equal(a.cum_migrations, b.cum_migrations)
+                   for a, b in zip(one, other)):
+            fail(f"numpy workers=4 ({name} call) differs from workers=1")
+    res["sharding"] = {"workers1_s": one_s, "workers4_first_s": four_s,
+                       "workers4_second_s": four2_s, "bitwise": True,
+                       "default_total_s": one[0].total_s}
+
+    # (d) Fig. 2's eight workloads on numpy, the card loop beside
+    fixed = HEMEM_SPACE.sample(np.random.default_rng(FIG2_CONFIG_SEED))
+    res["fig2"] = {}
+    for wname, inp in SUITE:
+        kw = dict(workload=wname, input_name=inp, scale=0.25,
+                  sampler="sparse")
+        num, num_s = timed(lambda: Study(surface_spec(
+            "hemem", backend="numpy", **kw)).run(
+                configs=[HEMEM_SPACE.default_config(), fixed]))
+        card = Study(surface_spec("hemem", device="cuda", **kw)).run(
+            configs=[HEMEM_SPACE.default_config(), fixed])
+        if not all(np.isfinite(r.total_s) and r.total_s > 0
+                   for r in num + card):
+            fail(f"fig2 {wname}: non-finite total_s")
+        res["fig2"][f"{wname}:{inp}"] = {
+            "numpy_total_s": [r.total_s for r in num],
+            "card_total_s": [r.total_s for r in card],
+            "numpy_host_s": num_s}
+
+    # (e) the quantized ablation launches no selection kernel
+    cfgs = batch_configs("hemem")
+    quant = {}
+    for exact in (True, False):
+        study = Study(surface_spec("hemem", device="cuda",
+                                   exact_select=exact))
+        study.run(configs=cfgs[:1])  # warm the trace
+        ops.reset_launch_counts()
+        out, wall_s = timed(lambda: study.run(configs=cfgs))
+        launches = ops.launch_counts()["select_topk"]
+        want = EPOCHS if exact else 0
+        if launches != want:
+            fail(f"exact_select={exact}: {launches} select_topk launches, "
+                 f"expected {want}")
+        if not all(np.isfinite(r.total_s) for r in out):
+            fail(f"exact_select={exact}: non-finite total_s")
+        quant["exact" if exact else "quantized"] = {
+            "launches": launches, "total_s": [r.total_s for r in out],
+            "wall_s": wall_s}
+    quant["default_rel"] = abs(quant["quantized"]["total_s"][0]
+                               - quant["exact"]["total_s"][0]) \
+        / quant["exact"]["total_s"][0]
+    res["quantized"] = quant
+
+    # (f) the legacy BO pieces and a deprecated shim; rounds of 8 configs
+    # (the legacy ask_batch past n_init), one B = 8 card run each
+    tuned, tune_s = timed(lambda: Study(surface_spec(
+        "hemem", device="cuda")).tune(budget=30, batch_size=8, seed=0,
+                                      surrogate="reference",
+                                      acquisition="legacy"))
+    X = np.stack([HEMEM_SPACE.encode(o.config) for o in tuned.history])
+    y = np.array([o.value for o in tuned.history])
+    ref = RandomForest(seed=5, mode="reference").fit(X, y).forest
+    fast = RandomForest(seed=5, mode="fast").fit(X, y).forest
+    for name in ("feature", "threshold", "left", "right", "value",
+                 "n_nodes"):
+        if not np.array_equal(getattr(ref, name), getattr(fast, name)):
+            fail(f"the reference grower's {name} differs from the fast's")
+    if len(tuned.history) != 30 or not np.isfinite(tuned.best_value):
+        fail("the legacy tune: incomplete or non-finite history")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        legacy = simulator.evaluate("hemem", None, "gups", "8GiB-hot",
+                                    scale=0.25, seed=0)
+    new = Study(surface_spec("hemem", scale=0.25,
+                             backend="numpy")).run().total_s
+    if legacy != new:
+        fail(f"evaluate() {legacy} differs from Study.run {new}")
+    res["legacy"] = {"tune_s": tune_s, "best_s": tuned.best_value,
+                     "default_s": tuned.default_value,
+                     "forest_nodes": int(ref.n_nodes.sum()),
+                     "evaluate_s": legacy}
+    res["phase_s"] = time.perf_counter() - t_phase
+    for engine, r in res["deterministic"].items():
+        print(f"  {engine} GUPS 1.0 B=8: numpy {r['numpy_total_s']:.6f} s "
+              f"({r['numpy_host_s']:.3f} s host), card "
+              f"{r['card_total_s']:.6f} s, walls within "
+              f"{r['max_rel_wall']:.3g}", flush=True)
+    print("  btree 0.25 numpy vs card: " + ", ".join(
+        f"{e} {r['numpy_total_s']:.4f}/{r['card_total_s']:.4f} "
+        f"({100 * r['rel']:.2f}%)" for e, r in res["btree_0.25"].items()),
+        flush=True)
+    print(f"  workers=1 {one_s:.3f} s, workers=4 {four_s:.3f} s then "
+          f"{four2_s:.3f} s, bitwise", flush=True)
+    print(f"  exact_select=False: 0 select_topk launches, total_s "
+          f"{quant['quantized']['total_s'][0]:.4f} against "
+          f"{quant['exact']['total_s'][0]:.4f} exact", flush=True)
+    print("numpy_backend: " + json.dumps(res), flush=True)
+    return res
+
+
 #: the elapsed seconds at the last ``stamp``
 STAMPED = [0.0]
 
@@ -4243,6 +4449,11 @@ def main() -> int:
     mesh = phase_mesh(*dryruns)
     mesh_launches = mesh["mesh"]["launches"]
     stamp("multi-card on one card: the (1, 1) mesh and the dry-run", start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_numpy_backend()
+    stamp("the numpy backend, the quantized ablation and the legacy BO",
+          start)
 
     def row(name, mod, timing, by_path):
         out = {

@@ -21,27 +21,61 @@ exactly as the sequential schedule would; the remaining slots take the
 At ``q=1`` the batch path delegates to :meth:`ask`, so histories are
 bit-identical to sequential runs.
 
-The model phase is array-native: candidate pools are generated directly
-as encoded unit-cube matrices (:meth:`KnobSpace.neighbors_batch` /
-``sample_batch_encoded``), deduplicated in encoded space, and scored +
-top-q-selected by one function
+The default model phase (``acquisition="fused"``) is array-native:
+candidate pools are generated directly as encoded unit-cube matrices
+(:meth:`KnobSpace.neighbors_batch` / ``sample_batch_encoded``),
+deduplicated in encoded space, and scored + top-q-selected by one function
 (:func:`repro_torch.core.bo.forest_fast.suggest_topq`: batched tree
 descent, moments, EI and the exact top-q; on a CUDA ``device`` one torch
 function ending in the ``select_topk`` kernel, on the CPU numpy); only the
-q returned suggestions are decoded to dicts.
+q returned suggestions are decoded to dicts.  ``acquisition="legacy"`` is
+the reference's older pipeline, numpy on the host: per-config dict pools
+from scalar neighbour draws, one descent per tree, a ``math.erf`` EI and a
+dense argsort.  Its pool consumes the optimizer's RNG differently, so its
+histories differ from the fused pipeline's; both equal the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
 from ..knobs import Config, KnobSpace
 from . import forest_fast
-from .rf import RandomForest
+from .rf import RandomForest, resolve_mode as rf_resolve_mode
+
+
+def _norm_pdf(z: np.ndarray) -> np.ndarray:
+    return forest_fast.norm_pdf(np.asarray(z, dtype=np.float64))
+
+
+def _norm_cdf(z: np.ndarray) -> np.ndarray:
+    return forest_fast.norm_cdf(z)
+
+
+def _norm_cdf_ref(z: np.ndarray) -> np.ndarray:
+    """The legacy CDF: ``np.vectorize(math.erf)``, a Python loop per
+    element (the numeric oracle of :func:`_norm_cdf` and the legacy
+    acquisition's cost profile)."""
+    return 0.5 * (1.0 + np.vectorize(math.erf)(z / math.sqrt(2.0)))
+
+
+def expected_improvement(mean: np.ndarray, std: np.ndarray,
+                         best: float) -> np.ndarray:
+    """EI for *minimization* (vectorized)."""
+    return forest_fast.expected_improvement(mean, std, best)
+
+
+def expected_improvement_ref(mean: np.ndarray, std: np.ndarray,
+                             best: float) -> np.ndarray:
+    """EI through the scalar-erf loop (the legacy acquisition)."""
+    std = np.maximum(std, 1e-12)
+    z = (best - mean) / std
+    return (best - mean) * _norm_cdf_ref(z) + std * _norm_pdf(z)
 
 
 @dataclasses.dataclass
@@ -55,9 +89,16 @@ class SMACOptimizer:
                  n_init: int = 20, random_prob: float = 0.20,
                  n_candidates: int = 512, n_local_parents: int = 4,
                  n_trees: int = 24, start_with_default: bool = True,
+                 surrogate: Optional[str] = None,
+                 acquisition: Optional[str] = None,
                  seed_configs: Optional[List[Config]] = None,
                  device="cuda"):
-        """``device`` is where the model phase scores its candidate pool
+        """``surrogate`` picks the forest grower (``"reference"|"fast"``;
+        None is :data:`repro_torch.core.bo.rf.DEFAULT_MODE`, fast; both
+        grow bitwise the same forest, so histories agree).
+        ``acquisition`` picks the scoring pipeline (``"fused"``, the
+        default, or ``"legacy"``, numpy on the host).  ``device`` is where
+        the fused pipeline scores its candidate pool
         (:func:`~repro_torch.core.bo.forest_fast.acquisition_backend`):
         the card for a CUDA device, numpy on the host for the CPU.
 
@@ -67,6 +108,13 @@ class SMACOptimizer:
         after a detected workload phase change it opens a fresh optimizer
         seeded with the prior one's elites, so the new phase's surrogate
         is fit on re-evaluations of previously good configs."""
+        if acquisition not in (None, "fused", "legacy"):
+            raise ValueError(f"unknown acquisition {acquisition!r}; "
+                             "expected 'fused' or 'legacy'")
+        if surrogate is not None:
+            # fail fast: a typo would otherwise surface only after the
+            # whole initial design has been evaluated
+            rf_resolve_mode(surrogate)
         self.space = space
         self.rng = np.random.default_rng(seed)
         self.n_init = n_init
@@ -75,6 +123,8 @@ class SMACOptimizer:
         self.n_local_parents = n_local_parents
         self.n_trees = n_trees
         self.start_with_default = start_with_default
+        self.surrogate_mode = surrogate
+        self.acquisition = acquisition or "fused"
         self.observations: List[Observation] = []
         self._surrogate: Optional[RandomForest] = None
         self._seed_queue: List[Config] = [space.validate(c) for c
@@ -134,7 +184,8 @@ class SMACOptimizer:
             y = np.array([o.value for o in self.observations])
             self._surrogate = RandomForest(
                 n_trees=self.n_trees,
-                seed=int(self.rng.integers(2 ** 31))).fit(X, y)
+                seed=int(self.rng.integers(2 ** 31)),
+                mode=self.surrogate_mode).fit(X, y)
             self.fit_s += time.perf_counter() - t0
         return self._surrogate
 
@@ -152,11 +203,33 @@ class SMACOptimizer:
 
         model = self.surrogate()
         best_val = self.best.value
+        if self.acquisition == "legacy":
+            cands = self._candidate_pool(self.n_candidates)
+            X = np.stack([self.space.encode(c) for c in cands])
+            mean, std = model.predict_batch(X)
+            ei = expected_improvement_ref(mean, std, best_val)
+            return cands[int(np.argmax(ei))]
         X = self._candidate_pool_encoded(self.n_candidates)
         _, sel = forest_fast.suggest_topq(
             model.forest, X, best_val, model._y_mean, model._y_std, q=1,
             device=self.device)
         return self.space.decode_batch(X[sel])[0]
+
+    def _candidate_pool(self, n_candidates: int) -> List[Config]:
+        """The legacy pool: per-config dicts from scalar neighbour draws
+        around the best parents, plus uniform samples."""
+        parents = sorted(self.observations, key=lambda o: o.value)
+        parents = parents[:self.n_local_parents]
+        cands: List[Config] = []
+        per_parent = max(4, n_candidates // (2 * len(parents)))
+        for p in parents:
+            cands.extend(self.space.neighbors(p.config, self.rng,
+                                              n=per_parent, scale=0.12))
+            cands.extend(self.space.neighbors(p.config, self.rng,
+                                              n=per_parent // 2, scale=0.35))
+        cands.extend(self.space.sample_batch(
+            self.rng, max(8, n_candidates - len(cands))))
+        return cands
 
     def _candidate_pool_encoded(self, n_candidates: int) -> np.ndarray:
         """Local neighbours of the best parents + fresh uniform samples,
@@ -217,17 +290,33 @@ class SMACOptimizer:
             return out
         model = self.surrogate()
         best_val = self.best.value
-        X = self._candidate_pool_encoded(max(self.n_candidates,
+        if self.acquisition == "legacy":
+            cands = self._candidate_pool(max(self.n_candidates,
                                              64 * n_model))
-        # canonical rows are config fixpoints, so deduplication is a
-        # first-occurrence mask in encoded space
-        _, first = np.unique(X, axis=0, return_index=True)
-        valid = np.zeros(len(X), dtype=bool)
-        valid[first] = True
-        _, sel = forest_fast.suggest_topq(
-            model.forest, X, best_val, model._y_mean, model._y_std,
-            valid=valid, q=n_model, device=self.device)
-        out.extend(self.space.decode_batch(X[sel]))
+            X = self.space.encode_batch(cands)
+            mean, std = model.predict_batch(X)
+            ei = expected_improvement_ref(mean, std, best_val)
+            seen = set()
+            for i in np.argsort(-ei, kind="stable"):
+                key = tuple(sorted(cands[i].items()))
+                if key in seen:
+                    continue
+                seen.add(key)
+                out.append(cands[i])
+                if len(seen) == n_model:
+                    break
+        else:
+            X = self._candidate_pool_encoded(max(self.n_candidates,
+                                                 64 * n_model))
+            # canonical rows are config fixpoints, so deduplication is a
+            # first-occurrence mask in encoded space
+            _, first = np.unique(X, axis=0, return_index=True)
+            valid = np.zeros(len(X), dtype=bool)
+            valid[first] = True
+            _, sel = forest_fast.suggest_topq(
+                model.forest, X, best_val, model._y_mean, model._y_std,
+                valid=valid, q=n_model, device=self.device)
+            out.extend(self.space.decode_batch(X[sel]))
         while len(out) < q:  # pool exhausted by dedup: fall back to random
             out.append(self.space.sample(self.rng))
         return out
@@ -273,3 +362,29 @@ class RandomSearch:
             raise ValueError("configs and values must have equal length")
         for cfg, val in zip(configs, values):
             self.observations.append(Observation(dict(cfg), float(val)))
+
+
+def grid_search(space: KnobSpace, objective, knob_values: Dict[str, List[Any]],
+                base: Optional[Config] = None
+                ) -> Tuple[Config, float, Dict[Tuple, float]]:
+    """Exhaustive grid over a subset of knobs (the paper's Fig-1 case
+    study).  Deprecated: build the grid configs explicitly and evaluate
+    them as one batched ``Study(spec).run(configs=...)`` pass -- the same
+    numbers over one shared trace."""
+    from .._deprecation import warn_deprecated
+    warn_deprecated("repro_torch.core.bo.smac.grid_search",
+                    "Study(spec).run(configs=<grid configs>)")
+    import itertools
+    base = dict(base or space.default_config())
+    names = list(knob_values)
+    results: Dict[Tuple, float] = {}
+    best_cfg, best_val = None, np.inf
+    for combo in itertools.product(*(knob_values[n] for n in names)):
+        cfg = dict(base)
+        cfg.update(dict(zip(names, combo)))
+        cfg = space.validate(cfg)
+        val = float(objective(cfg))
+        results[combo] = val
+        if val < best_val:
+            best_cfg, best_val = cfg, val
+    return best_cfg, best_val, results

@@ -85,10 +85,13 @@ class TuningSession:
                  batch_size: int = 1,
                  objective_batch: Optional[
                      Callable[[Sequence[Config]], Sequence[float]]] = None,
-                 crn: bool = False, device="cuda"):
-        """``space`` overrides the engine's knob space; ``device`` is where
-        SMAC's model phase scores each pool (the card for a CUDA device,
-        numpy on the host for the CPU)."""
+                 crn: bool = False, surrogate: Optional[str] = None,
+                 acquisition: Optional[str] = None, device="cuda"):
+        """``space`` overrides the engine's knob space; ``surrogate`` and
+        ``acquisition`` pick SMAC's forest grower and scoring pipeline
+        (:class:`~repro_torch.core.bo.smac.SMACOptimizer`); ``device`` is
+        where the fused pipeline scores each pool (the card for a CUDA
+        device, numpy on the host for the CPU)."""
         self.engine = engine
         self.space = space if space is not None else get_space(engine)
         self.objective = objective
@@ -112,6 +115,8 @@ class TuningSession:
             self.optimizer = SMACOptimizer(self.space, seed=seed,
                                            n_init=n_init,
                                            random_prob=random_prob,
+                                           surrogate=surrogate,
+                                           acquisition=acquisition,
                                            device=device)
         elif optimizer == "random":
             self.optimizer = RandomSearch(self.space, seed=seed)
@@ -173,3 +178,42 @@ class TuningSession:
             default_value=default_value, wall_s=time.time() - t0,
             round_times=round_times)
 
+
+def tune_scenario(engine: str, scenario, budget: int = 100, seed: int = 0,
+                  optimizer: str = "smac", verbose: bool = False,
+                  batch_size: int = 1, workers: int = 1,
+                  sampler: str = "sparse", backend: str = "numpy",
+                  ) -> TuningResult:
+    """Deprecated wrapper -- use ``Study(spec).tune(budget, batch_size)``.
+
+    ``batch_size=q > 1`` evaluates each optimizer round as one batched
+    simulator pass (``sampler``/``workers``/``backend`` select its
+    evaluation mode); ``batch_size=1`` is the paper-faithful sequential
+    loop, on the elementwise sampler and the numpy backend.  The
+    optimizer's model phase runs on the host.
+    """
+    from .._deprecation import warn_deprecated
+    from ..specs import EngineSpec, ExperimentSpec, SimOptions, WorkloadSpec
+    from ..study import Study
+    warn_deprecated("repro_torch.core.bo.tuner.tune_scenario",
+                    "Study(ExperimentSpec(...)).tune(budget, batch_size)")
+    if batch_size <= 1 and (workers not in (1, None) or sampler != "sparse"
+                            or backend != "numpy"):
+        import warnings
+        warnings.warn(
+            "batch_size=1 runs the paper-faithful sequential loop; "
+            "workers/sampler/backend only apply with batch_size > 1",
+            stacklevel=2)
+    if batch_size <= 1:  # the sequential loop always evaluated elementwise
+        sampler, workers, backend = "elementwise", 1, "numpy"
+    spec = ExperimentSpec(
+        engine=EngineSpec(engine),
+        workload=WorkloadSpec(scenario.workload, scenario.input_name,
+                              threads=scenario.threads,
+                              scale=scenario.scale),
+        machine=scenario.machine, fast_slow_ratio=scenario.fast_slow_ratio,
+        options=SimOptions(seed=scenario.seed, sampler=sampler,
+                           workers=workers, backend=backend,
+                           device="cuda" if backend == "torch" else "cpu"))
+    return Study(spec).tune(budget=budget, batch_size=batch_size, seed=seed,
+                            optimizer=optimizer, verbose=verbose)

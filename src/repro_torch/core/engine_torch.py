@@ -41,11 +41,11 @@ import torch
 from ..kernels import ops as kernel_ops
 from ..kernels import select_topk as select_topk_kernel
 from .knobs import HEMEM_SPACE
-from .registry import ENGINES, SAMPLERS, register_engine, register_sampler
+from .registry import COMPILED, register_engine
 
-register_sampler("elementwise", "fused counter-hash Poisson draw per page")
-register_sampler("sparse", "fused counter-hash Poisson draw per page "
-                 "(same distribution as 'elementwise')")
+#: sampler names the fused counter-hash Poisson draw serves: one draw, one
+#: distribution, for both spellings
+TORCH_SAMPLERS = ("elementwise", "sparse")
 
 #: rate below which the fused Poisson draw inverts the CDF exactly; at and
 #: above it the popcount-normal approximation takes over
@@ -184,6 +184,130 @@ def kth_largest(values: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Quantized selection (the ``exact_select=False`` ablation): a dual bitwise
+# cutoff search over log-quantized priorities plus one blocked prefix sum
+# for the cutoff tiers, the reference package's ``select_top_quantized``.
+# ---------------------------------------------------------------------------
+#: quantized-priority width of the cutoff search (order within collisions
+#: falls back to page-index order; selection counts stay exact)
+_SEL_QBITS = 8
+#: block width of the blocked prefix sum
+_CS_BLOCK = 64
+#: the Cephes log's polynomial and split ln 2 (the reference's float32 log
+#: is this approximation, evaluated in this order)
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+    1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+    3.3333331174E-1))
+_LOG_Q1 = _f32(-2.12194440e-4)
+_LOG_Q2 = _f32(0.693359375)
+_SQRTHF = _f32(0.707106781186547524)
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as a fused multiply-add
+    rounds (``b`` and ``c`` float32 tensors or floats exact in float32):
+    the product of two float32 values is exact in float64."""
+    return (a.double() * b + c).float()
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of a float32 tensor of values >= 1, bitwise the
+    reference's CPU log (the Cephes polynomial on the frexp mantissa,
+    with its products fused where the reference's compiler fuses them);
+    ``torch.log`` differs from it by an ulp on about one input in six."""
+    m, e = torch.frexp(x)
+    e = e.to(torch.float32)
+    low = m < _SQRTHF
+    e = e - low.to(torch.float32)
+    xx = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = xx * xx
+    x3 = x2 * xx
+    y = _fma32(xx, _LOG_P[0], _LOG_P[1])
+    y1 = _fma32(xx, _LOG_P[3], _LOG_P[4])
+    y2 = _fma32(xx, _LOG_P[6], _LOG_P[7])
+    y = _fma32(y, xx, _LOG_P[2])
+    y1 = _fma32(y1, xx, _LOG_P[5])
+    y2 = _fma32(y2, xx, _LOG_P[8])
+    y = _fma32(y, x3, y1)
+    y = _fma32(y, x3, y2)
+    y = _fma32(y, x3, e * _LOG_Q1)
+    xx = xx - x2 * 0.5
+    xx = xx + y
+    return xx + e * _LOG_Q2
+
+
+#: ln 2 as :func:`log_f32` computes it (equal to float32(ln 2))
+_LN2 = _f32(0.6931471805599453)
+
+
+def _quantize(heat: torch.Tensor, qbits: int) -> torch.Tensor:
+    """Per-row log-scale quantization of nonnegative priorities into
+    ``[0, 2**qbits - 1]`` (int64): log spacing keeps magnitude classes
+    apart when a few very hot pages dominate the linear scale."""
+    lg = log_f32(1.0 + heat.to(torch.float32)) / _LN2
+    hi = lg.max(dim=-1, keepdim=True).values
+    q = lg * (_f32((1 << qbits) - 1) / torch.clamp(hi, min=_f32(1e-30)))
+    return q.to(torch.int64)
+
+
+def _blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 cumsum along the last axis of ``(B, n)``: inclusive
+    sums within blocks of :data:`_CS_BLOCK`, plus each block's exclusive
+    offset."""
+    B, n = x.shape
+    blk = _CS_BLOCK
+    pad = (-n) % blk
+    xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
+    within = torch.cumsum(xp.view(B, -1, blk), dim=-1)
+    totals = within[:, :, -1]
+    offsets = torch.cumsum(totals, dim=-1) - totals
+    return (within + offsets[:, :, None]).view(B, -1)[:, :n]
+
+
+def select_top_quantized(p_mask, p_heat, d_mask, d_heat, n_promote,
+                         n_demote):
+    """Approximate top-k selection masks over log-quantized priorities --
+    the ablation behind ``SimOptions(exact_select=False)``, bitwise the
+    reference's.
+
+    Priorities quantize to :data:`_SEL_QBITS` bits; a dual bitwise binary
+    search finds each side's cutoff priority (the k-th best), and one
+    packed prefix sum takes the exact remainder from the cutoff tier in
+    page-index order.  Selection *counts* are exact; only the order among
+    pages whose priorities collide in the quantization differs from the
+    exact selection.  Plain torch: no kernel is launched.
+    """
+    kp = n_promote.to(torch.float32)[:, None]
+    kd = n_demote.to(torch.float32)[:, None]
+    qmax = (1 << _SEL_QBITS) - 1
+    # candidate priority in [1, qmax+1], 0 = not a candidate; larger is
+    # picked earlier (promotions: hottest first; demotions: coldest first)
+    vp = torch.where(p_mask, _quantize(p_heat, _SEL_QBITS) + 1, 0)
+    vd = torch.where(d_mask, (qmax - _quantize(d_heat, _SEL_QBITS)) + 1, 0)
+    tp = torch.zeros_like(kp, dtype=torch.int64)
+    td = torch.zeros_like(kd, dtype=torch.int64)
+    for i in range(_SEL_QBITS, -1, -1):  # cutoff = k-th best priority
+        bit = 1 << i
+        cp = (vp >= (tp | bit)).sum(dim=-1, keepdim=True).to(torch.float32)
+        cd = (vd >= (td | bit)).sum(dim=-1, keepdim=True).to(torch.float32)
+        tp = torch.where(cp >= kp, tp | bit, tp)
+        td = torch.where(cd >= kd, td | bit, td)
+    strict_p = vp > tp
+    strict_d = vd > td
+    bound_p = p_mask & (vp == tp)
+    bound_d = d_mask & (vd == td)
+    take_p = kp - strict_p.sum(dim=-1, keepdim=True).to(torch.float32)
+    take_d = kd - strict_d.sum(dim=-1, keepdim=True).to(torch.float32)
+    # one packed prefix sum resolves both boundary tiers in page order
+    cs = _blocked_cumsum(bound_p.to(torch.int64)
+                         + (bound_d.to(torch.int64) << 32))
+    pmask = strict_p | (bound_p & ((cs & _M32).to(torch.float32) <= take_p))
+    dmask = strict_d | (bound_d & ((cs >> 32).to(torch.float32) <= take_d))
+    return pmask & (kp > 0), dmask & (kd > 0)
+
+
+# ---------------------------------------------------------------------------
 # Engine definitions.  Each engine contributes:
 #   knobs(configs)  -> dict of per-config numpy vectors / static arrays
 #   init(kv)        -> state dict of (B, ...) tensors
@@ -233,16 +357,30 @@ class EngineDef:
     run); ``init(kv)`` the initial state; ``observe`` folds one epoch of
     true access counts into the monitoring state and returns the per-row
     sampling volume; ``plan`` returns bool ``(B, n)`` selection masks and
-    per-row overhead ms.  Class attributes: ``plans = False`` skips
-    ``plan``; ``zero_cost = True`` charges no migration bandwidth.
+    per-row overhead ms, selecting through :meth:`select`.  Class
+    attributes: ``plans = False`` skips ``plan``; ``zero_cost = True``
+    charges no migration bandwidth.
     """
 
     zero_cost = False
     plans = True
+    #: plan with the exact selection (set per run by :func:`run_epochs`)
+    exact_select = True
 
     def __init__(self, B, n, fast_cap, device):
         self.B, self.n, self.fast_cap, self.device = B, n, fast_cap, device
         self.page_bytes = _f32(2 ** 21)  # set by _build_step
+
+    def select(self, p_mask, p_heat, d_mask, d_heat, n_promote, n_demote):
+        """Migration-plan top-k selection masks: the exact ``select_topk``
+        kernel (its plain version on the CPU), or under
+        ``exact_select=False`` the quantized ablation
+        (:func:`select_top_quantized`), which launches no kernel."""
+        if self.exact_select:
+            return kernel_ops.select_topk(p_mask, p_heat, d_mask, d_heat,
+                                          n_promote, n_demote)
+        return select_top_quantized(p_mask, p_heat, d_mask, d_heat,
+                                    n_promote, n_demote)
 
     def tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -282,8 +420,8 @@ class OracleDef(EngineDef):
         # want = the `cap` hottest allocated pages (ties by index)
         heat_b = heat[None, :].expand(B, n)
         none = self.zeros(B, n, dtype=torch.bool)
-        want, _ = kernel_ops.select_topk(alloc, heat_b, none, heat_b,
-                                         cap.to(torch.float32), self.zeros(B))
+        want, _ = self.select(alloc, heat_b, none, heat_b,
+                              cap.to(torch.float32), self.zeros(B))
         prom_c = want & ~in_fast
         dem_c = ~want & in_fast
         free = self.fast_cap - in_fast.sum(dim=1)
@@ -382,8 +520,8 @@ class HeMemDef(EngineDef):
         n_p2, n_d2 = _truncate_to_rate(n_promote, n_d, room,
                                        torch.clamp(rate_pages, min=0.0))
         gate = (runs > 0).to(torch.float32)
-        pmask, dmask = kernel_ops.select_topk(cand_p, heat, cand_d, heat,
-                                              n_p2 * gate, n_d2 * gate)
+        pmask, dmask = self.select(cand_p, heat, cand_d, heat,
+                                   n_p2 * gate, n_d2 * gate)
         return st, pmask, dmask, self.zeros(self.B)
 
 
@@ -463,8 +601,8 @@ class MemtisDef(EngineDef):
         n_promote = torch.minimum(n_p, room + n_d)
         n_p2, n_d2 = _truncate_to_rate(n_promote, n_d, room, rate_pages)
         gate = run_row.to(torch.float32)
-        pmask, dmask = kernel_ops.select_topk(cand_p, heat, cand_d, heat,
-                                              n_p2 * gate, n_d2 * gate)
+        pmask, dmask = self.select(cand_p, heat, cand_d, heat,
+                                   n_p2 * gate, n_d2 * gate)
         overhead = torch.where(
             run_row,
             (pmask.sum(dim=1) + dmask.sum(dim=1)).to(torch.float32)
@@ -589,15 +727,16 @@ class HMSDKDef(EngineDef):
         n_promote = torch.minimum(n_p, room + n_d)
         n_p2, n_d2 = _truncate_to_rate(n_promote, n_d, room, rate_pages)
         gate = (runs > 0).to(torch.float32)
-        pmask, dmask = kernel_ops.select_topk(cand_p, est_p, cand_d, key_d,
-                                              n_p2 * gate, n_d2 * gate)
+        pmask, dmask = self.select(cand_p, est_p, cand_d, key_d,
+                                   n_p2 * gate, n_d2 * gate)
         return st, pmask, dmask, self.zeros(self.B)
 
 
 def supports(engine_name: str, sampler: str,
              n_pages: "int | None" = None) -> bool:
-    """True if the epoch loop covers this (engine, sampler[, size])."""
-    if engine_name not in ENGINES or sampler not in SAMPLERS:
+    """True if the epoch loop covers this (engine, sampler[, size]): the
+    engine has a compiled definition and the sampler is a fused one."""
+    if engine_name not in COMPILED or sampler not in TORCH_SAMPLERS:
         return False
     return n_pages is None or n_pages <= MAX_PAGES
 
@@ -657,7 +796,7 @@ def _build_step(edef: EngineDef, const, page_bytes, scale, record_placement):
             db = n_demote * edef.page_bytes
             w_mig = ((pmask | dmask).to(torch.float32) * writes).sum(dim=1)
         wall_ms, stall_s, sampling_s, hit = _access_cost(
-            acc_f, acc_sum - acc_f, reads_s, writes_s, pb, db, w_mig,
+            torch, acc_f, acc_sum - acc_f, reads_s, writes_s, pb, db, w_mig,
             est_wall, samples, overhead_ms, const)
         out = (wall_ms, cum_mig, hit, sampling_s * 1e3, stall_s * 1e3)
         if record_placement:
@@ -755,7 +894,8 @@ def run_epochs(workload, engine_name: str,
                batch_offset: int = 0, record_placement: bool = False,
                epoch_start: int = 0, epoch_stop: "int | None" = None,
                carry: Any = None, return_carry: bool = False,
-               device="cuda") -> Dict[str, np.ndarray]:
+               device="cuda", exact_select: bool = True
+               ) -> Dict[str, np.ndarray]:
     """Run the epoch loop on ``device``; returns per-epoch result arrays.
 
     ``sim_configs`` must already be scale-adjusted (``scale_config``).
@@ -769,6 +909,8 @@ def run_epochs(workload, engine_name: str,
     ``stall_ms`` as ``(n_epochs, B)`` float32 arrays (segment epochs
     only), ``in_fast`` ``(n_epochs, B, n)`` when ``record_placement``,
     ``carry`` when ``return_carry``, and the segment's trace.
+    ``exact_select=False`` plans with :func:`select_top_quantized` (the
+    ablation; no ``select_topk`` launch).
     """
     device = resolve_device(device)
     B = len(sim_configs)
@@ -776,8 +918,8 @@ def run_epochs(workload, engine_name: str,
     if not supports(engine_name, sampler, n):
         raise ValueError(
             f"the torch epoch loop does not cover engine={engine_name!r}, "
-            f"sampler={sampler!r}, n_pages={n} (engines: {ENGINES.names()}, "
-            f"samplers: {SAMPLERS.names()}, at most {MAX_PAGES} pages)")
+            f"sampler={sampler!r}, n_pages={n} (engines: {COMPILED.names()}, "
+            f"samplers: {TORCH_SAMPLERS}, at most {MAX_PAGES} pages)")
     E = workload.n_epochs
     start = int(epoch_start)
     stop = E if epoch_stop is None else min(int(epoch_stop), E)
@@ -798,7 +940,8 @@ def run_epochs(workload, engine_name: str,
                                                           writes_np))
     const = {k: _f32(v) for k, v in const.items()}
 
-    edef = ENGINES.get(engine_name)(B, n, fast_cap, device)
+    edef = COMPILED.get(engine_name)(B, n, fast_cap, device)
+    edef.exact_select = bool(exact_select)
     kv = edef.upload(edef.knobs(sim_configs))
     step = _build_step(edef, const, page_bytes, workload.scale,
                        record_placement)

@@ -1,6 +1,5 @@
 """Knob (parameter) spaces for tiering engines (a copy of the reference
-package's, trimmed to what the port's optimizer and knob importance
-use).
+package's).
 
 Faithful to the paper:
   * Table 2 lists HeMem's 10 knobs with defaults and [min, max] ranges; those are
@@ -92,6 +91,10 @@ class KnobSpace:
     def __getitem__(self, name: str) -> Knob:
         return self._by_name[name]
 
+    @property
+    def names(self) -> List[str]:
+        return [k.name for k in self.knobs]
+
     def default_config(self) -> Config:
         return {k.name: (int(k.default) if k.is_int else k.default) for k in self.knobs}
 
@@ -115,13 +118,34 @@ class KnobSpace:
             cfg[k.name] = int(v) if k.is_int else v
         return cfg
 
+    def sample_batch(self, rng: np.random.Generator, n: int) -> List[Config]:
+        return [self.sample(rng) for _ in range(n)]
+
     def encode(self, config: Mapping[str, Any]) -> np.ndarray:
         """Encode a config as a unit-interval feature vector for the surrogate."""
         return np.array(
             [k.to_unit(float(config[k.name])) for k in self.knobs], dtype=np.float64
         )
 
+    def decode(self, x: np.ndarray) -> Config:
+        cfg = {}
+        for k, u in zip(self.knobs, np.asarray(x, dtype=np.float64)):
+            v = k.from_unit(float(u))
+            cfg[k.name] = int(v) if k.is_int else v
+        return cfg
+
     # -- batched encoding (vectorized over configs) -------------------------
+    def encode_batch(self, configs: Sequence[Mapping[str, Any]]) -> np.ndarray:
+        """Encode N configs as an ``(N, len(self))`` unit-interval matrix."""
+        V = np.array([[float(c[k.name]) for k in self.knobs]
+                      for c in configs], dtype=np.float64)
+        if V.size == 0:
+            return V.reshape(len(configs), len(self.knobs))
+        Vt = V.copy()
+        Vt[:, self._log] = np.log(np.maximum(V[:, self._log],
+                                             self._lo[self._log]))
+        return (Vt - self._lo_t) / (self._hi_t - self._lo_t)
+
     def decode_batch(self, X: np.ndarray) -> List[Config]:
         """Decode an ``(N, len(self))`` unit matrix back into configs."""
         X = np.clip(np.asarray(X, dtype=np.float64), 0.0, 1.0)
@@ -135,6 +159,11 @@ class KnobSpace:
             out.append({k.name: (int(v) if k.is_int else float(v))
                         for k, v in zip(self.knobs, row)})
         return out
+
+    def validate_batch(self,
+                       configs: Sequence[Mapping[str, Any]]) -> List[Config]:
+        """Clip N configs into the domain; unknown keys are rejected."""
+        return [self.validate(c) for c in configs]
 
     # -- array-native candidate generation (the BO hot path) -----------------
     def quantize_unit(self, X: np.ndarray) -> np.ndarray:
@@ -176,6 +205,21 @@ class KnobSpace:
         mask[empty, fix[empty]] = True
         Z = rng.normal(0.0, scale, size=(n, d))
         return self.quantize_unit(np.clip(x[None, :] + mask * Z, 0.0, 1.0))
+
+    def neighbors(
+        self, config: Mapping[str, Any], rng: np.random.Generator, n: int = 8,
+        scale: float = 0.15,
+    ) -> List[Config]:
+        """Gaussian perturbations in unit space around ``config`` (SMAC local search)."""
+        x = self.encode(config)
+        out = []
+        for _ in range(n):
+            mask = rng.uniform(size=len(x)) < max(1.0 / len(x), 0.3)
+            if not mask.any():
+                mask[rng.integers(len(x))] = True
+            xp = x + mask * rng.normal(0.0, scale, size=len(x))
+            out.append(self.decode(np.clip(xp, 0.0, 1.0)))
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """Typed experiment specs of the PyTorch port (JSON round-trippable).
 
-The same contract as the reference package's specs, adapted to the port's
-single backend:
+The same contract as the reference package's specs:
 
 * :class:`EngineSpec` — engine name (registry-validated) + knob config
   (validated/completed against the engine's knob space);
 * :class:`WorkloadSpec` — workload name + input, thread count and scale;
-* :class:`SimOptions` — *how* to evaluate: seed, sampler, common random
-  numbers, the torch device, heatmap recording;
+* :class:`SimOptions` — *how* to evaluate: seed, sampler, backend,
+  workers, common random numbers, selection, the torch device, heatmap
+  recording;
 * :class:`ExperimentSpec` — the composition, plus machine name and
   fast:slow ratio.
 """
@@ -26,7 +26,7 @@ from . import simulator as _sim_mod        # noqa: F401
 from . import traffic as _traffic_mod      # noqa: F401  (kv-* workloads)
 from . import workloads as _workloads_mod  # noqa: F401
 from .knobs import SPACES
-from .registry import ENGINES, MACHINES, SAMPLERS, WORKLOADS
+from .registry import BACKENDS, MACHINES, SAMPLERS, WORKLOADS, check_engine
 
 
 def _freeze(obj, field: str, value) -> None:
@@ -42,7 +42,7 @@ class EngineSpec:
     config: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
-        ENGINES.get(self.name)
+        check_engine(self.name)  # raises with did-you-mean on unknown names
         space = SPACES.get(self.name)
         if space is None:
             cfg = dict(self.config or {})
@@ -122,23 +122,48 @@ class WorkloadSpec:
 class SimOptions:
     """How to evaluate.
 
-    ``device`` is the torch device the epoch loop runs on (``"cuda"`` by
-    default; tests pass ``"cpu"``).  Asking for CUDA where there is none
-    raises when the simulation starts — it never falls back to the CPU.
+    ``backend`` picks the epoch loop: ``"torch"`` (default) is the compiled
+    loop on ``device`` (``"cuda"`` by default; tests pass ``"cpu"``);
+    asking for CUDA where there is none raises when the simulation starts
+    -- it never falls back to the CPU.  ``"numpy"`` is the reference's
+    bit-exact numpy loop on the host, which ``workers`` (an int or
+    ``"auto"``: the CPU count) shards over spawned processes; sharding
+    never changes results.  An engine with no compiled definition runs
+    the numpy loop under ``backend="torch"`` too (one warning), with the
+    torch cost model on ``device``.
+
     ``crn=True`` (common random numbers) gives every config of a batch
     bitwise-identical monitoring noise, so within-batch comparisons are
-    paired; the port's counter-based draws support it on every device.
+    paired; it needs the compiled loop's counter-based draws, so it
+    raises with ``backend="numpy"``.  ``exact_select=True`` (default)
+    plans migrations with the exact ``select_topk`` kernel; ``False`` is
+    the reference's 8-bit log-quantized selection ablation (exact counts,
+    near-exact order; no kernel).  The numpy loop is always exact.
+
+    :meth:`from_dict` reads the reference's dictionaries too: their
+    ``backend="jax"`` (the reference's compiled loop) is ``"torch"``.
     """
 
     seed: int = 0
     sampler: str = "elementwise"
+    workers: Union[int, str] = 1
+    backend: str = "torch"
     crn: bool = False
+    exact_select: bool = True
     device: str = "cuda"
     record_heatmap: bool = False
     heat_bins: int = 128
 
     def __post_init__(self):
         SAMPLERS.get(self.sampler)
+        BACKENDS.get(self.backend)
+        if self.workers not in ("auto", None) and int(self.workers) < 0:
+            raise ValueError(f"workers must be >= 0, got {self.workers!r}")
+        if self.crn and self.backend != "torch":
+            raise ValueError(
+                "crn=True (common random numbers) requires backend='torch'; "
+                "the numpy engines consume sequential RNG streams that "
+                "cannot be shared across a batch")
         torch.device(self.device)  # raises on a malformed device string
 
     def to_dict(self) -> Dict[str, Any]:
@@ -146,7 +171,10 @@ class SimOptions:
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "SimOptions":
-        return cls(**dict(d))
+        d = dict(d)
+        if d.get("backend") == "jax":
+            d["backend"] = "torch"
+        return cls(**d)
 
 
 @dataclasses.dataclass(frozen=True)

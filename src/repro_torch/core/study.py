@@ -21,6 +21,28 @@ sweep.
 
 Workload traces are built once per Study and workload spec and shared
 across evaluations (builds are deterministic in the spec).
+
+``SimOptions.backend`` picks the epoch loop every call pattern runs:
+``"torch"`` (default, the compiled loop on ``SimOptions.device``) or
+``"numpy"`` (the reference's loop, bitwise its results, sharded over
+``SimOptions.workers`` spawned processes).
+
+Migration table (old call -> new call; the old calls remain as deprecated
+shims, on the numpy backend):
+
+=================================================  ==================================================
+old                                                new
+=================================================  ==================================================
+``evaluate(eng, cfg, wl, inp, machine, ...)``      ``Study(ExperimentSpec(engine=EngineSpec(eng, cfg),
+                                                   workload=WorkloadSpec(wl, inp), ...)).run().total_s``
+``evaluate_batch(eng, cfgs, wl, ...)``             ``Study(spec).run(configs=cfgs)``
+``run_simulation(workload, eng, cfg, machine)``    ``Study(spec).run()`` (full ``SimResult``)
+``tune_scenario(eng, Scenario(...), budget)``      ``Study(spec).tune(budget=..., batch_size=...)``
+``Scenario(workload, inp, machine, ...)``          ``ExperimentSpec`` (+ ``SimOptions`` for seeds/
+                                                   sampler/workers/backend)
+``make_engine(name, cfg, tier)``                   ``@register_engine(name)`` + ``Study``
+``grid_search(space, objective, knob_values)``     ``Study(spec).run(configs=<grid configs>)``
+=================================================  ==================================================
 """
 
 from __future__ import annotations
@@ -70,11 +92,18 @@ class SweepResult:
 class Study:
     """Typed front-end: one spec, three call patterns (run/tune/sweep)."""
 
-    def __init__(self, spec: ExperimentSpec):
+    def __init__(self, spec: ExperimentSpec, *,
+                 machine: Optional[Machine] = None):
         if not isinstance(spec, ExperimentSpec):
             raise TypeError(f"expected ExperimentSpec, got {type(spec)!r}")
+        if machine is not None and machine.name != spec.machine:
+            raise ValueError(f"machine override {machine.name!r} does not "
+                             f"match spec.machine {spec.machine!r}")
         self.spec = spec
-        self.machine: Machine = get_machine(spec.machine)
+        # an explicit Machine instance overrides the registry resolution
+        # (how the legacy shims honour ad-hoc Machine objects)
+        self.machine: Machine = machine if machine is not None \
+            else get_machine(spec.machine)
         self._workloads: Dict[Tuple, Workload] = {}
 
     @property
@@ -110,13 +139,16 @@ class Study:
             sampler=opts.sampler, record_heatmap=opts.record_heatmap,
             heat_bins=opts.heat_bins,
             fast_capacity_pages=self.spec.fast_capacity_pages,
-            crn=opts.crn, device=opts.device)
+            crn=opts.crn, device=opts.device, backend=opts.backend,
+            workers=opts.workers, exact_select=opts.exact_select)
         return results[0] if configs is None else results
 
     def tune(self, budget: int = 100, batch_size: int = 1, seed: int = 0,
              optimizer: str = "smac", n_init: int = 20,
              random_prob: float = 0.20, verbose: bool = False,
              space: Optional[KnobSpace] = None,
+             surrogate: Optional[str] = None,
+             acquisition: Optional[str] = None,
              objective: Optional[Callable[[Config], float]] = None,
              objective_batch: Optional[
                  Callable[[Sequence[Config]], Sequence[float]]] = None,
@@ -152,6 +184,12 @@ class Study:
         device one torch function on the card ending in the
         ``select_topk`` kernel, on the CPU numpy
         (``repro_torch.core.bo.forest_fast.BACKEND`` pins one).
+        ``surrogate`` picks the forest grower (``"fast"``, the default, or
+        the recursive ``"reference"`` grower; both grow bitwise the same
+        forest) and ``acquisition`` the scoring pipeline (``"fused"``, the
+        default, or ``"legacy"``: per-config dict pools, a per-tree
+        descent and a scalar-erf EI on the host, the reference's older
+        pipeline, with its own history).
 
         ``objective`` (``config -> float``, lower is better) replaces the
         simulator with a custom objective — e.g. the serving score of a
@@ -251,9 +289,9 @@ class Study:
         warm-restarts the optimizer from the prior elites; a switch is
         applied only past the ``hysteresis`` margin and ``dwell_windows``
         windows after the last one.  ``budget`` caps the candidate
-        evaluations.  Requires ``SimOptions(crn=True)``; ``journal=`` and
-        ``resume=`` give the async path's byte-identical kill/resume
-        contract.  Returns an
+        evaluations.  Requires ``SimOptions(backend="torch",
+        crn=True)``; ``journal=`` and ``resume=`` give the async path's
+        byte-identical kill/resume contract.  Returns an
         :class:`~repro_torch.core.tune_online.OnlineTuningResult`.
         """
         if online:
@@ -290,7 +328,8 @@ class Study:
             service = TuneService(
                 self, budget=budget, slots=slots, scheduler=scheduler,
                 seed=seed, optimizer=optimizer, n_init=n_init,
-                random_prob=random_prob, space=space, objective=objective,
+                random_prob=random_prob, space=space, surrogate=surrogate,
+                acquisition=acquisition, objective=objective,
                 journal=journal, resume=resume, pool=pool, eta=eta,
                 window=window, verbose=verbose,
                 executor="fleet" if executor == "fleet" else "local",
@@ -326,7 +365,8 @@ class Study:
             space=space, optimizer=optimizer, budget=budget, seed=seed,
             n_init=n_init, random_prob=random_prob, batch_size=batch_size,
             objective_batch=objective_batch if batch_size > 1 else None,
-            crn=self.spec.options.crn, device=self.spec.options.device)
+            crn=self.spec.options.crn, surrogate=surrogate,
+            acquisition=acquisition, device=self.spec.options.device)
         return session.run(verbose=verbose)
 
     def sweep(self, grid: Optional[Mapping[str, Sequence[Any]]] = None, *,
@@ -335,7 +375,9 @@ class Study:
               configs: Optional[Sequence[Mapping[str, Any]]] = None,
               ) -> SweepResult:
         """Evaluate a multi-engine × multi-workload grid, one batched pass
-        per (engine, workload) cell on the spec's device, in order.
+        per (engine, workload) cell: on the spec's device, in order, or on
+        the numpy backend through one shard queue over ``workers``
+        processes.
 
         ``grid`` may bundle the axes as ``{"engines": [...], "workloads":
         [...], "configs": [...]}``; keyword arguments override.  Axes
@@ -384,5 +426,6 @@ class Study:
             seeds=opts.seed, sampler=opts.sampler,
             record_heatmap=opts.record_heatmap, heat_bins=opts.heat_bins,
             fast_capacity_pages=self.spec.fast_capacity_pages,
-            crn=opts.crn, device=opts.device)
+            crn=opts.crn, device=opts.device, backend=opts.backend,
+            workers=opts.workers, exact_select=opts.exact_select)
         return SweepResult(cells=dict(zip(cell_keys, results)))

@@ -191,6 +191,11 @@ class OnlineTuner:
             raise ValueError(
                 f"dwell_windows must be >= 1, got {dwell_windows}")
         opts = study.spec.options
+        if opts.backend != "torch":
+            raise ValueError(
+                "online tuning runs candidate batches as CRN counterfactual"
+                " segments, which requires the compiled backend: construct "
+                "the study with SimOptions(backend='torch', crn=True)")
         if not opts.crn:
             raise ValueError(
                 "online tuning runs candidate batches as CRN counterfactual"
@@ -322,7 +327,8 @@ class OnlineTuner:
                 sampler=opts.sampler,
                 fast_capacity_pages=spec.fast_capacity_pages,
                 crn=True, epoch_start=lo, epoch_stop=hi, carry=seg_carry,
-                return_carry=True, device=opts.device)
+                return_carry=True, device=opts.device,
+                exact_select=opts.exact_select)
             carry = out["carry"]
             win_wall = np.asarray(out["wall_ms"]).sum(axis=0)
             dep_wall = float(win_wall[0])

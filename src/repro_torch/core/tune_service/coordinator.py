@@ -73,6 +73,7 @@ before the service or the twin digest sees it.
 from __future__ import annotations
 
 import collections
+import pickle
 import queue as queue_mod
 import socket
 import threading
@@ -298,6 +299,11 @@ class _SocketFleet:
         self._heartbeat_s = heartbeat_s
         self._lock = threading.Lock()
         self._chans: Dict[int, FrameChannel] = {}
+        #: worker id -> serial of its current connection (1, 2, ... in
+        #: greet order); every message read is tagged ``conn`` with its
+        #: connection's, and ``send`` returns the one it wrote to
+        self._conn_ids: Dict[int, int] = {}
+        self._n_conns = 0
         self._dc: set = set()      # disconnected (may re-dial); not dead
         self._reaped: set = set()  # provably dead (process sentinel)
         self._closing = False
@@ -363,10 +369,12 @@ class _SocketFleet:
         with self._lock:
             old = self._chans.get(wid)
             self._chans[wid] = chan
+            self._n_conns += 1
+            conn = self._conn_ids[wid] = self._n_conns
             self._dc.discard(wid)
         if old is not None:
             old.close()  # a re-greet supersedes the stale connection
-        self._inbox.put({"type": "hello", "worker": wid})
+        self._inbox.put({"type": "hello", "worker": wid, "conn": conn})
         try:
             while True:
                 try:
@@ -385,7 +393,7 @@ class _SocketFleet:
                                      "stale": True})
                     continue
                 if msg is not None:
-                    self._inbox.put(msg)
+                    self._inbox.put(dict(msg, conn=conn))
         except (EOFError, OSError):
             pass  # a disconnect: the worker may re-dial and re-greet
         except FrameError as e:
@@ -407,12 +415,15 @@ class _SocketFleet:
         except queue_mod.Empty:
             return None
 
-    def send(self, wid: int, msg: Dict[str, Any]) -> None:
+    def send(self, wid: int, msg: Dict[str, Any]) -> int:
+        """Write ``msg`` to ``wid``'s connection; returns its serial."""
         with self._lock:
             chan = self._chans.get(wid)
+            conn = self._conn_ids.get(wid)
         if chan is None:
             raise OSError(f"worker {wid} has no live connection")
         chan.send(msg)
+        return conn
 
     def dispatchable(self) -> List[int]:
         with self._lock:
@@ -691,21 +702,38 @@ class FleetExecutor:
         if kind == "heartbeat":
             unit = msg.get("unit")
             if unit is None:
-                # an idle heartbeat from a worker we believe is busy means
-                # its result was lost in flight — expire the lease now
                 seq = self._busy.get(wid)
-                if seq is not None:
-                    lease = self._leases.get(seq)
-                    if lease is None:
-                        # the lease already resolved without this worker
-                        # (rejected frame, expiry + late twin): the worker
-                        # is demonstrably idle again — free its slot
-                        self._busy.pop(wid, None)
-                    elif lease["worker"] == wid and \
-                            time.monotonic() - lease["issued"] > \
+                if seq is None:
+                    return
+                lease = self._leases.get(seq)
+                if lease is None:
+                    # the lease already resolved without this worker
+                    # (rejected frame, expiry + late twin): the worker
+                    # is demonstrably idle again — free its slot
+                    self._busy.pop(wid, None)
+                    return
+                if lease["worker"] != wid:
+                    return
+                if msg.get("last") == (seq, lease["attempt"]):
+                    # idle after receiving the unit: its result was lost
+                    # in flight — expire the lease now
+                    if time.monotonic() - lease["issued"] > \
                             3 * self.heartbeat_s:
                         self._busy.pop(wid, None)
                         self._expire(seq, "lost")
+                elif lease.get("conn") is not None and \
+                        msg.get("conn", 0) > lease["conn"]:
+                    # the worker never received the unit, and speaks on a
+                    # newer connection than the one the unit was written
+                    # to (the connection dropped with the frame in it, or
+                    # the worker restarted under its id): it never will
+                    self._busy.pop(wid, None)
+                    self._expire(seq, "lost")
+                # else the heartbeat was sent before the unit arrived (it
+                # crossed the unit on the same connection): it says
+                # nothing about the lease.  Read as "idle", a late one (a
+                # loaded coordinator) expired a live lease as "lost" and
+                # re-issued it to the same, busy worker
                 return
             lease = self._leases.get(unit)
             if lease is not None and lease["worker"] == wid and \
@@ -855,9 +883,10 @@ class FleetExecutor:
             attempt = self._attempts[seq]
             fn, args, t = self._specs[seq]
             try:
-                self._fleet.send(wid, {"type": "unit", "unit": seq,
-                                       "attempt": attempt, "fn": fn,
-                                       "args": args, "timeout_s": t})
+                conn = self._fleet.send(
+                    wid, {"type": "unit", "unit": seq, "attempt": attempt,
+                          "call": pickle.dumps((fn, args)),
+                          "timeout_s": t})
             except (OSError, FrameError):
                 # the connection dropped under us (socket transport): the
                 # unit was never leased — requeue it and try other workers
@@ -866,7 +895,7 @@ class FleetExecutor:
                 continue
             self._leases[seq] = {"worker": wid, "attempt": attempt,
                                  "issued": now, "last_seen": now,
-                                 "heard": self._listened}
+                                 "heard": self._listened, "conn": conn}
             self._busy[wid] = seq
             if attempt == 0:
                 self._history[seq].append(

@@ -107,7 +107,8 @@ def _eval_segment(payload: Dict[str, Any]) -> Dict[str, Any]:
         crn=payload["crn"], batch_offset=payload["batch_offset"],
         epoch_start=payload["lo"], epoch_stop=payload["hi"],
         carry=payload["carry"], return_carry=payload["return_carry"],
-        device=payload["device"])
+        device=payload["device"], backend=payload["backend"],
+        exact_select=payload["exact_select"])
     return {"wall_ms": out["wall_ms"][:, 0], "carry": out["carry"]}
 
 
@@ -194,6 +195,8 @@ class TuneService:
                  optimizer: str = "smac", n_init: int = 20,
                  random_prob: float = 0.20,
                  space: Optional[KnobSpace] = None,
+                 surrogate: Optional[str] = None,
+                 acquisition: Optional[str] = None,
                  objective: Optional[Callable] = None,
                  journal: Optional[str] = None, resume: bool = False,
                  pool: str = "thread", eta: int = 4,
@@ -273,7 +276,8 @@ class TuneService:
         if optimizer == "smac":
             self.optimizer = SMACOptimizer(
                 self.space, seed=seed, n_init=n_init,
-                random_prob=random_prob, device=self.spec.options.device)
+                random_prob=random_prob, surrogate=surrogate,
+                acquisition=acquisition, device=self.spec.options.device)
         elif optimizer == "random":
             self.optimizer = RandomSearch(self.space, seed=seed)
         else:
@@ -308,16 +312,18 @@ class TuneService:
         }
         self._machine = study.machine
         opts = self.spec.options
-        # promoted trials resume from their rung's host carry; the epoch
-        # loop checkpoints every engine, sampler and size it runs.  Not
+        # promoted trials resume from their rung's host carry; the compiled
+        # epoch loop checkpoints every engine, sampler and size it runs
+        # (the numpy loop none: its units re-run [0, hi)).  Not
         # under the fleet: a rung unit re-derives [0, hi) from scratch
         # (exact: segmented equals unsegmented bitwise), which keeps each
         # unit a pure function of (config, hi) -- re-issue and
         # first-commit-wins compose with promotion unchanged -- and keeps
         # result frames small (a carry holds per-page arrays)
         self._can_checkpoint = objective is None and \
-            executor != "fleet" and engine_torch.supports(
-                self.spec.engine.name, opts.sampler, self.workload.n_pages)
+            opts.backend == "torch" and executor != "fleet" and \
+            engine_torch.supports(self.spec.engine.name, opts.sampler,
+                                  self.workload.n_pages)
         # bookkeeping
         self._units: Dict[int, Dict[str, Any]] = {}
         self._trials: List[Trial] = []
@@ -339,7 +345,8 @@ class TuneService:
             "fast_slow_ratio": self.spec.fast_slow_ratio,
             "seed": opts.seed, "sampler": opts.sampler,
             "fast_capacity_pages": self.spec.fast_capacity_pages,
-            "crn": opts.crn, "batch_offset": 0,
+            "backend": opts.backend, "crn": opts.crn, "batch_offset": 0,
+            "exact_select": opts.exact_select,
             "lo": lo, "hi": hi, "carry": carry,
             "return_carry": self._can_checkpoint, "device": opts.device,
         }

@@ -11,14 +11,22 @@ three message types::
                                                    ``unit`` is None while
                                                    idle (lets the
                                                    coordinator detect a
-                                                   lost result message)
+                                                   lost result message);
+                                                   an idle one adds
+                                                   ``last``, the (unit,
+                                                   attempt) received last
     result     {type, worker, unit, attempt,       when the unit finishes
                 result}                            (or times out locally)
 
 and receives::
 
-    unit       {type, unit, attempt, fn, args, timeout_s}
+    unit       {type, unit, attempt, call, timeout_s}
     shutdown   {type}
+
+``call`` is the pickled ``(fn, args)`` pair, and the evaluation thread
+unpickles it: a worker's first unit imports its function's module, which
+can take seconds, and unpickled in the serve loop it stopped the
+heartbeats for as long (a loaded host outlasted the lease's deadline).
 
 The evaluation runs on a daemon thread so the serve loop keeps
 heartbeating mid-segment -- a slow epoch loop is visibly alive, a dead or
@@ -75,12 +83,13 @@ as a numpy array (and, under the fleet, no carry), never a CUDA tensor.
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import socket
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -170,7 +179,7 @@ class _Running:
     holding the finished slot for a transport-poll interval."""
 
     def __init__(self, msg: Dict[str, Any], faults: FaultPlan,
-                 card_error: Optional[str] = None):
+                 card_error: Optional[str], device: str, worker_id: int):
         self.unit = int(msg["unit"])
         self.attempt = int(msg["attempt"])
         self.timeout_s = msg.get("timeout_s")
@@ -179,12 +188,14 @@ class _Running:
         self._event = threading.Event()
         self._faults = faults
         self._card_error = card_error
+        self._device = device
+        self._worker_id = worker_id
         self._thread = threading.Thread(
-            target=self._run, args=(msg["fn"], msg["args"]), daemon=True,
+            target=self._run, args=(msg["call"],), daemon=True,
             name=f"repro-torch-fleet-eval-u{self.unit}")
         self._thread.start()
 
-    def _run(self, fn: Callable, args) -> None:
+    def _run(self, call: bytes) -> None:
         if self._faults.kills(self.unit, self.attempt):
             # die mid-segment: the lease is live, heartbeats have flowed
             time.sleep(0.05)
@@ -194,8 +205,21 @@ class _Running:
             # comes -- only timeout_s can unwedge the unit
             while True:
                 time.sleep(3600)
-        if self._card_error is not None:
-            self._box["result"] = {"error": self._card_error, "slot_s": 0.0}
+        try:
+            # the frame was authenticated before it was decoded; this
+            # may import the function's module (seconds, once a worker)
+            fn, args = pickle.loads(call)
+        except Exception as e:  # noqa: BLE001 -- reported as the result
+            self._box["result"] = {
+                "error": f"worker {self._worker_id} cannot load unit "
+                         f"{self.unit}: {type(e).__name__}: {e}",
+                "slot_s": 0.0}
+            self._event.set()
+            return
+        error = self._card_error or device_error(args, self._device,
+                                                 self._worker_id)
+        if error is not None:
+            self._box["result"] = {"error": error, "slot_s": 0.0}
         else:
             before = ops.launch_counts_by_variant()
             result = _timed_safe(fn, *args)
@@ -246,6 +270,11 @@ class _ServeState:
         #: first thing after the next successful re-greet, so a partition
         #: landing on the result frame costs a reconnect, not the unit
         self.pending: Optional[Dict[str, Any]] = None
+        #: (unit, attempt) of the last unit message received (a refused one
+        #: too); every idle heartbeat carries it, so the coordinator can
+        #: tell one sent before the worker received its unit (or that
+        #: never will) from one sent after
+        self.last: Optional[Tuple[int, int]] = None
 
 
 def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
@@ -299,6 +328,7 @@ def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
             if msg.get("type") == "shutdown":
                 return "shutdown"
             if msg.get("type") == "unit":
+                state.last = (int(msg["unit"]), int(msg["attempt"]))
                 if state.current is not None and not state.current.done:
                     # the coordinator never double-books a worker; a unit
                     # arriving mid-unit means state was lost -- refuse it
@@ -308,16 +338,15 @@ def _serve(recv: Callable[[float], Optional[Dict[str, Any]]],
                           "result": {"error": "worker busy (protocol "
                                               "violation)", "slot_s": 0.0}})
                     continue
-                state.current = _Running(
-                    msg, faults, state.card_error or device_error(
-                        msg["args"], state.device, worker_id))
+                state.current = _Running(msg, faults, state.card_error,
+                                         state.device, worker_id)
                 continue
         now = time.monotonic()
         if state.current is None:
             if not state.wedged and now - last_hb >= heartbeat_s:
                 last_hb = now
                 send({"type": "heartbeat", "worker": worker_id,
-                      "unit": None, "attempt": None})
+                      "unit": None, "attempt": None, "last": state.last})
             continue
         current = state.current
         u, a = current.unit, current.attempt

@@ -33,7 +33,7 @@ pytest.importorskip("torch")
 
 from _torch_fleet_common import bounded_test  # noqa: E402,F401
 from _torch_fleet_common import (ASHA_KW, FLEET_KW, KW,  # noqa: E402
-                                 same_study, schema_ok, spec)
+                                 WAIT_S, same_study, schema_ok, spec)
 from repro_torch.core import Study  # noqa: E402
 from repro_torch.core.tune_service import (FaultPlan,  # noqa: E402
                                            FleetExecutor, FleetSpec,
@@ -176,6 +176,73 @@ def test_coordinator_stall_expires_no_live_lease(where, monkeypatch):
         st = ex.stats()
         assert st["n_expired_leases"] == 0 and st["n_reissues"] == 0
         assert st["n_duplicate_results"] == 0
+    finally:
+        ex.close()
+
+
+def test_idle_heartbeat_crossing_its_unit_expires_nothing():
+    """An idle heartbeat the worker sent before it received its unit, read
+    when the lease is four heartbeats old (a loaded coordinator reads its
+    inbox late), is not a lost result: nothing expires, and the unit is
+    not re-issued to its busy worker.  Read as "idle", it expired the
+    lease as ``lost``, and the re-issue came back "worker busy"."""
+    ex = FleetExecutor(workers=1, pool="process", **FLEET_KW, device="cpu")
+    try:
+        seq = ex.submit(slow_unit, 1.0)
+        deadline = time.monotonic() + WAIT_S
+        while seq not in ex._leases:
+            assert time.monotonic() < deadline, "no worker took the unit"
+            ex._pump(block=True)
+        wid = ex._leases[seq]["worker"]
+        time.sleep(4 * ex.heartbeat_s)
+        ex._handle({"type": "heartbeat", "worker": wid, "unit": None,
+                    "attempt": None, "last": None})
+        assert seq in ex._leases and ex.n_expired == 0
+        _, r = ex.pop_next()
+        assert r["value"] == 1.0
+        st = ex.stats()
+        assert st["n_expired_leases"] == 0 and st["n_reissues"] == 0
+        assert st["n_duplicate_results"] == 0
+    finally:
+        ex.close()
+
+
+def test_unit_frame_lost_with_its_connection_expires_lost():
+    """The socket connection drops with a unit frame in it, after the
+    write returned: the worker never receives the unit.  It re-greets on
+    a new connection, and its first idle heartbeat there (which names no
+    receipt of the unit) expires the lease as ``lost``, within heartbeats
+    rather than at the 40 s silence deadline; the re-issue completes."""
+    ex = FleetExecutor(workers=1, pool="socket", heartbeat_s=0.05,
+                       lease_deadline=40, device="cpu")
+    fleet = ex._fleet
+    real_send = fleet.send
+    dropped = []
+
+    def send(wid, msg):
+        if msg.get("type") == "unit" and not dropped:
+            dropped.append((msg["unit"], msg["attempt"]))
+            with fleet._lock:
+                chan, conn = fleet._chans[wid], fleet._conn_ids[wid]
+            chan.close()  # the frame never reaches the worker
+            return conn
+        return real_send(wid, msg)
+
+    fleet.send = send
+    try:
+        seq = ex.submit(slow_unit, 0.2)
+        _, r = ex.pop_next()
+        assert r["value"] == 0.2
+        assert dropped == [(seq, 0)]
+        expiries = [h for h in ex._history[seq] if h["event"] == "expire"]
+        assert expiries == [{"event": "expire", "unit": seq, "attempt": 0,
+                             "reason": "lost"}]
+        # issue to expiry: the re-dial, the greet and a heartbeat
+        assert len(ex.recover_s) == 1
+        assert ex.recover_s[0] < ex.lease_deadline / 4
+        st = ex.stats()
+        assert st["n_expired_leases"] == 1 and st["n_reissues"] == 1
+        assert not st["degraded"]
     finally:
         ex.close()
 

@@ -180,11 +180,14 @@ def test_hemem_engine_copy_is_bitwise_the_reference(seed):
 
 
 def test_engine_copy_is_not_in_the_registry():
-    """The compiled epoch loop owns the registered names."""
-    from repro_torch.core import engine_torch  # noqa: F401  (registers)
-    assert registry.ENGINES.get("hemem") is not engine.BatchHeMemEngine
-    assert registry.SAMPLERS.get("elementwise") is not \
-        engine._elementwise_draw
+    """The compiled epoch loop owns the compiled table's names: the numpy
+    engine the store drives is the name's numpy engine, never its
+    compiled definition."""
+    from repro_torch.core import engine_torch
+    assert registry.COMPILED.get("hemem") is engine_torch.HeMemDef
+    assert registry.COMPILED.get("hemem") is not engine.BatchHeMemEngine
+    assert registry.ENGINES.get("hemem") is engine.BatchHeMemEngine
+    assert registry.SAMPLERS.get("elementwise") is engine._elementwise_draw
 
 
 # ---------------------------------------------------------------------------
