@@ -40,6 +40,7 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from ..kernels import select_topk as select_topk_kernel
+from ..spans import span
 from .knobs import HEMEM_SPACE
 from .registry import COMPILED, register_engine
 
@@ -376,11 +377,12 @@ class EngineDef:
         kernel (its plain version on the CPU), or under
         ``exact_select=False`` the quantized ablation
         (:func:`select_top_quantized`), which launches no kernel."""
-        if self.exact_select:
-            return kernel_ops.select_topk(p_mask, p_heat, d_mask, d_heat,
-                                          n_promote, n_demote)
-        return select_top_quantized(p_mask, p_heat, d_mask, d_heat,
-                                    n_promote, n_demote)
+        with span("repro_torch.sim.epoch.select"):
+            if self.exact_select:
+                return kernel_ops.select_topk(p_mask, p_heat, d_mask, d_heat,
+                                              n_promote, n_demote)
+            return select_top_quantized(p_mask, p_heat, d_mask, d_heat,
+                                        n_promote, n_demote)
 
     def tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -754,51 +756,58 @@ def _build_step(edef: EngineDef, const, page_bytes, scale, record_placement):
 
     def step(carry, reads, writes, e, kv):
         in_fast, allocated, est_wall, eng_state, cum_mig, keys = carry
-        # first-touch allocation: the trace is shared across the batch, so
-        # `allocated` is one shared (n,) vector; only in_fast is per-row
-        acc = reads + writes
-        new = (acc > touch_floor) & ~allocated
-        room = fast_cap - in_fast.sum(dim=1)
-        rank_new = torch.cumsum(new, dim=0)
-        in_fast = in_fast | (new[None, :] & (rank_new[None, :]
-                                             <= room[:, None]))
-        allocated = allocated | new
+        with span("repro_torch.sim.epoch.first_touch"):
+            # first-touch allocation: the trace is shared across the batch,
+            # so `allocated` is one shared (n,) vector; only in_fast is
+            # per-row
+            acc = reads + writes
+            new = (acc > touch_floor) & ~allocated
+            room = fast_cap - in_fast.sum(dim=1)
+            rank_new = torch.cumsum(new, dim=0)
+            in_fast = in_fast | (new[None, :] & (rank_new[None, :]
+                                                 <= room[:, None]))
+            allocated = allocated | new
 
-        eng_state, samples = edef.observe(
-            eng_state, kv, keys, e, reads, writes, est_wall)
-        max_pages = torch.floor(kv["rate"] * _f32(2 ** 30)
-                                * (est_wall / 1e3) / edef.page_bytes
-                                * scale_f)
-        if edef.plans:
-            eng_state, pmask, dmask, overhead_ms = edef.plan(
-                eng_state, kv, keys, e, reads, writes, in_fast, allocated,
-                est_wall, max_pages)
-        else:
-            pmask = edef.zeros(B, n, dtype=torch.bool)
-            dmask = pmask
-            overhead_ms = edef.zeros(B)
-        n_promote = pmask.sum(dim=1).to(torch.float32)
-        n_demote = dmask.sum(dim=1).to(torch.float32)
-        in_fast = (in_fast & ~dmask) | pmask
-        cum_mig = cum_mig + n_promote + n_demote
+        with span("repro_torch.sim.epoch.observe"):
+            eng_state, samples = edef.observe(
+                eng_state, kv, keys, e, reads, writes, est_wall)
+        with span("repro_torch.sim.epoch.plan"):
+            max_pages = torch.floor(kv["rate"] * _f32(2 ** 30)
+                                    * (est_wall / 1e3) / edef.page_bytes
+                                    * scale_f)
+            if edef.plans:
+                eng_state, pmask, dmask, overhead_ms = edef.plan(
+                    eng_state, kv, keys, e, reads, writes, in_fast,
+                    allocated, est_wall, max_pages)
+            else:
+                pmask = edef.zeros(B, n, dtype=torch.bool)
+                dmask = pmask
+                overhead_ms = edef.zeros(B)
 
-        acc_sum = acc.sum()
-        inf_f = in_fast.to(torch.float32)
-        reads_f = (inf_f * reads).sum(dim=1)
-        writes_f = (inf_f * writes).sum(dim=1)
-        acc_f = reads_f + writes_f
-        reads_s = reads.sum() - reads_f
-        writes_s = writes.sum() - writes_f
-        if zero_cost:
-            pb = db = w_mig = edef.zeros(B)
-        else:
-            pb = n_promote * edef.page_bytes
-            db = n_demote * edef.page_bytes
-            w_mig = ((pmask | dmask).to(torch.float32) * writes).sum(dim=1)
-        wall_ms, stall_s, sampling_s, hit = _access_cost(
-            torch, acc_f, acc_sum - acc_f, reads_s, writes_s, pb, db, w_mig,
-            est_wall, samples, overhead_ms, const)
-        out = (wall_ms, cum_mig, hit, sampling_s * 1e3, stall_s * 1e3)
+        with span("repro_torch.sim.epoch.cost"):
+            n_promote = pmask.sum(dim=1).to(torch.float32)
+            n_demote = dmask.sum(dim=1).to(torch.float32)
+            in_fast = (in_fast & ~dmask) | pmask
+            cum_mig = cum_mig + n_promote + n_demote
+
+            acc_sum = acc.sum()
+            inf_f = in_fast.to(torch.float32)
+            reads_f = (inf_f * reads).sum(dim=1)
+            writes_f = (inf_f * writes).sum(dim=1)
+            acc_f = reads_f + writes_f
+            reads_s = reads.sum() - reads_f
+            writes_s = writes.sum() - writes_f
+            if zero_cost:
+                pb = db = w_mig = edef.zeros(B)
+            else:
+                pb = n_promote * edef.page_bytes
+                db = n_demote * edef.page_bytes
+                w_mig = ((pmask | dmask).to(torch.float32)
+                         * writes).sum(dim=1)
+            wall_ms, stall_s, sampling_s, hit = _access_cost(
+                torch, acc_f, acc_sum - acc_f, reads_s, writes_s, pb, db,
+                w_mig, est_wall, samples, overhead_ms, const)
+            out = (wall_ms, cum_mig, hit, sampling_s * 1e3, stall_s * 1e3)
         if record_placement:
             out = out + (in_fast,)
         return (in_fast, allocated, wall_ms, eng_state, cum_mig, keys), out
@@ -929,39 +938,44 @@ def run_epochs(workload, engine_name: str,
     if start > 0 and carry is None:
         raise ValueError("epoch_start > 0 requires the carry returned by "
                          "the previous segment (return_carry=True)")
-    trace = [workload.epoch_access(e) for e in range(start, stop)]
-    reads_np = np.stack([r for r, _ in trace]).astype(np.float32)
-    writes_np = np.stack([w for _, w in trace]).astype(np.float32)
-    # the trace goes to the device once per segment, each epoch's row
-    # padded to TRACE_ROW_ALIGN values: CUDA reductions vectorize by the
-    # pointer's alignment, so a row at another offset sums in another
-    # order, and a segment would not equal the whole run bitwise
-    reads_t, writes_t = (_padded_rows(a, device) for a in (reads_np,
-                                                          writes_np))
-    const = {k: _f32(v) for k, v in const.items()}
+    with span("repro_torch.sim.trace_upload"):
+        trace = [workload.epoch_access(e) for e in range(start, stop)]
+        reads_np = np.stack([r for r, _ in trace]).astype(np.float32)
+        writes_np = np.stack([w for _, w in trace]).astype(np.float32)
+        # the trace goes to the device once per segment, each epoch's row
+        # padded to TRACE_ROW_ALIGN values: CUDA reductions vectorize by
+        # the pointer's alignment, so a row at another offset sums in
+        # another order, and a segment would not equal the whole run bitwise
+        reads_t, writes_t = (_padded_rows(a, device) for a in (reads_np,
+                                                              writes_np))
 
-    edef = COMPILED.get(engine_name)(B, n, fast_cap, device)
-    edef.exact_select = bool(exact_select)
-    kv = edef.upload(edef.knobs(sim_configs))
-    step = _build_step(edef, const, page_bytes, workload.scale,
-                       record_placement)
-    if carry is None:
-        carry = init_carry(edef, kv, base_keys(seeds, batch_offset, crn),
-                           np.full(B, workload.epoch_ms, dtype=np.float32))
-    else:
-        carry = carry_from_host(carry, device)
+    with span("repro_torch.sim.engine_setup"):
+        const = {k: _f32(v) for k, v in const.items()}
+        edef = COMPILED.get(engine_name)(B, n, fast_cap, device)
+        edef.exact_select = bool(exact_select)
+        kv = edef.upload(edef.knobs(sim_configs))
+        step = _build_step(edef, const, page_bytes, workload.scale,
+                           record_placement)
+        if carry is None:
+            carry = init_carry(
+                edef, kv, base_keys(seeds, batch_offset, crn),
+                np.full(B, workload.epoch_ms, dtype=np.float32))
+        else:
+            carry = carry_from_host(carry, device)
     outs = []
     for i, e in enumerate(range(start, stop)):
-        carry, o = step(carry, reads_t[i, :n], writes_t[i, :n], e, kv)
+        with span("repro_torch.sim.epoch"):
+            carry, o = step(carry, reads_t[i, :n], writes_t[i, :n], e, kv)
         outs.append(o)
     names = ["wall_ms", "cum_migrations", "hit_rate", "sampling_ms",
              "stall_ms"]
     if record_placement:
         names.append("in_fast")
-    out = {name: torch.stack([o[j] for o in outs]).cpu().numpy()
-           for j, name in enumerate(names)}
-    if return_carry:
-        out["carry"] = carry_to_host(carry)
+    with span("repro_torch.sim.results"):
+        out = {name: torch.stack([o[j] for o in outs]).cpu().numpy()
+               for j, name in enumerate(names)}
+        if return_carry:
+            out["carry"] = carry_to_host(carry)
     out["trace_reads"] = reads_np
     out["trace_writes"] = writes_np
     return out

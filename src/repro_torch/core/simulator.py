@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..spans import span
 from . import engine_torch
 from ._deprecation import warn_deprecated
 from .engine import make_batch_engine
@@ -277,36 +278,40 @@ def _run_batch(workload: Workload, engine_name: str,
         seeds, sampler, crn=crn, batch_offset=batch_offset,
         record_placement=record_heatmap, device=device,
         exact_select=exact_select)
-    wall = np.asarray(out["wall_ms"], dtype=np.float64)
-    cum_mig = np.asarray(out["cum_migrations"], dtype=np.float64)
-    hit_rate = np.asarray(out["hit_rate"], dtype=np.float64)
-    sampling_ms = np.asarray(out["sampling_ms"], dtype=np.float64)
-    stall_ms = np.asarray(out["stall_ms"], dtype=np.float64)
-    n_epochs = workload.n_epochs
-    heat = place = None
-    if record_heatmap:
-        bin_of = np.arange(n) * heat_bins // n
-        bin_sizes = np.maximum(np.bincount(bin_of, minlength=heat_bins), 1)
-        heat = np.zeros((n_epochs, heat_bins))
-        place = np.zeros((B, n_epochs, heat_bins))
-        in_fast = out["in_fast"]
-        acc_t = (out["trace_reads"] + out["trace_writes"]).astype(np.float64)
-        for e in range(n_epochs):
-            heat[e] = np.bincount(bin_of, weights=acc_t[e],
-                                  minlength=heat_bins)
-            for b in range(B):
-                place[b, e] = np.bincount(
-                    bin_of, weights=in_fast[e, b].astype(np.float64),
-                    minlength=heat_bins) / bin_sizes
-    return [SimResult(
-        workload=workload.key, engine=engine_name, machine=machine.name,
-        config=dict(configs[b]), total_s=float(wall[:, b].sum() / 1e3),
-        epoch_wall_ms=wall[:, b].copy(), cum_migrations=cum_mig[:, b].copy(),
-        fast_hit_rate=hit_rate[:, b].copy(),
-        sampling_ms=sampling_ms[:, b].copy(),
-        stall_ms=stall_ms[:, b].copy(),
-        heatmap=heat if record_heatmap else None,
-        placement=place[b] if record_heatmap else None) for b in range(B)]
+    with span("repro_torch.sim.results"):
+        wall = np.asarray(out["wall_ms"], dtype=np.float64)
+        cum_mig = np.asarray(out["cum_migrations"], dtype=np.float64)
+        hit_rate = np.asarray(out["hit_rate"], dtype=np.float64)
+        sampling_ms = np.asarray(out["sampling_ms"], dtype=np.float64)
+        stall_ms = np.asarray(out["stall_ms"], dtype=np.float64)
+        n_epochs = workload.n_epochs
+        heat = place = None
+        if record_heatmap:
+            bin_of = np.arange(n) * heat_bins // n
+            bin_sizes = np.maximum(np.bincount(bin_of, minlength=heat_bins),
+                                   1)
+            heat = np.zeros((n_epochs, heat_bins))
+            place = np.zeros((B, n_epochs, heat_bins))
+            in_fast = out["in_fast"]
+            acc_t = (out["trace_reads"]
+                     + out["trace_writes"]).astype(np.float64)
+            for e in range(n_epochs):
+                heat[e] = np.bincount(bin_of, weights=acc_t[e],
+                                      minlength=heat_bins)
+                for b in range(B):
+                    place[b, e] = np.bincount(
+                        bin_of, weights=in_fast[e, b].astype(np.float64),
+                        minlength=heat_bins) / bin_sizes
+        return [SimResult(
+            workload=workload.key, engine=engine_name, machine=machine.name,
+            config=dict(configs[b]), total_s=float(wall[:, b].sum() / 1e3),
+            epoch_wall_ms=wall[:, b].copy(),
+            cum_migrations=cum_mig[:, b].copy(),
+            fast_hit_rate=hit_rate[:, b].copy(),
+            sampling_ms=sampling_ms[:, b].copy(),
+            stall_ms=stall_ms[:, b].copy(),
+            heatmap=heat if record_heatmap else None,
+            placement=place[b] if record_heatmap else None) for b in range(B)]
 
 
 #: engines whose torch fallback was already warned about (one line each)

@@ -51,6 +51,7 @@ import dataclasses
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
+from ..spans import span
 from .bo.tuner import TuningResult, TuningSession
 from .tune_service.faults import FaultPlan
 from .knobs import Config, KnobSpace
@@ -120,9 +121,10 @@ class Study:
                      self.spec.options.seed)
         wl = self._workloads.get(cache_key)
         if wl is None:
-            wl = make_workload(wspec.name, wspec.input_name, threads=threads,
-                               scale=wspec.scale,
-                               seed=self.spec.options.seed)
+            with span("repro_torch.workload.build"):
+                wl = make_workload(wspec.name, wspec.input_name,
+                                   threads=threads, scale=wspec.scale,
+                                   seed=self.spec.options.seed)
             self._workloads[cache_key] = wl
         return wl
 
@@ -133,14 +135,15 @@ class Study:
         opts = self.spec.options
         batch = [self.spec.engine.config] if configs is None \
             else [dict(c) for c in configs]
-        results = run_simulation_batch(
-            self.workload(), self.spec.engine.name, batch, self.machine,
-            fast_slow_ratio=self.spec.fast_slow_ratio, seeds=opts.seed,
-            sampler=opts.sampler, record_heatmap=opts.record_heatmap,
-            heat_bins=opts.heat_bins,
-            fast_capacity_pages=self.spec.fast_capacity_pages,
-            crn=opts.crn, device=opts.device, backend=opts.backend,
-            workers=opts.workers, exact_select=opts.exact_select)
+        with span("repro_torch.study.run"):
+            results = run_simulation_batch(
+                self.workload(), self.spec.engine.name, batch, self.machine,
+                fast_slow_ratio=self.spec.fast_slow_ratio, seeds=opts.seed,
+                sampler=opts.sampler, record_heatmap=opts.record_heatmap,
+                heat_bins=opts.heat_bins,
+                fast_capacity_pages=self.spec.fast_capacity_pages,
+                crn=opts.crn, device=opts.device, backend=opts.backend,
+                workers=opts.workers, exact_select=opts.exact_select)
         return results[0] if configs is None else results
 
     def tune(self, budget: int = 100, batch_size: int = 1, seed: int = 0,
